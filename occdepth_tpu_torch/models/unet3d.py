@@ -1,0 +1,66 @@
+"""3D UNet decoder, KITTI variant, NCDHW.
+
+Counterpart of `occdepth_tpu/models/unet3d.py::UNet3DKitti` for
+project_scale 2 (the final Upsample to the full grid), with the reference's
+module names.  The NYU decoder, the project_scale-1 Convblock3d and the
+occluded head are not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn as nn
+
+from occdepth_tpu_torch.models.crp3d import CPMegaVoxels
+from occdepth_tpu_torch.models.unet3d_blocks import (
+    Downsample,
+    Process,
+    SegmentationHead,
+    Upsample,
+)
+
+
+class UNet3DKitti(nn.Module):
+    def __init__(self, n_classes: int, feature: int,
+                 full_scene_size: Tuple[int, int, int],
+                 project_scale: int = 2, context_prior: bool = True,
+                 n_relations: int = 4, cascade_cls: bool = True,
+                 bn_momentum: float = 0.1):
+        super().__init__()
+        if project_scale != 2:
+            raise NotImplementedError("only project_scale=2 is ported")
+        f = feature
+        self.process_l1 = nn.Sequential(Process(f, bn_momentum),
+                                        Downsample(f, bn_momentum))
+        self.process_l2 = nn.Sequential(Process(f * 2, bn_momentum),
+                                        Downsample(f * 2, bn_momentum))
+        self.up_13_l2 = Upsample(f * 4, f * 2, bn_momentum)
+        self.up_12_l1 = Upsample(f * 2, f, bn_momentum)
+        self.up_l1_lfull = Upsample(f, f // 2, bn_momentum)
+        self.ssc_head = SegmentationHead(f // 2, n_classes, (1, 2, 3),
+                                         cascade_cls=cascade_cls)
+        self.context_prior = context_prior
+        if context_prior:
+            size_l3 = tuple(s // project_scale // 4 for s in full_scene_size)
+            self.CP_mega_voxels = CPMegaVoxels(
+                f * 4, size_l3, n_relations=n_relations,
+                bn_momentum=bn_momentum,
+            )
+
+    def forward(self, x3d_l1) -> Dict[str, torch.Tensor]:
+        """x3d_l1 (B, f, X, Y, Z) -> NCDHW ssc_logit/occ_logit (+P_logits)."""
+        res: Dict[str, torch.Tensor] = {}
+        x3d_l2 = self.process_l1(x3d_l1)
+        x3d_l3 = self.process_l2(x3d_l2)
+        if self.context_prior:
+            ret = self.CP_mega_voxels(x3d_l3)
+            x3d_l3 = ret["x"]
+            res["P_logits"] = ret["P_logits"]
+        x3d_up_l2 = self.up_13_l2(x3d_l3) + x3d_l2
+        x3d_up_l1 = self.up_12_l1(x3d_up_l2) + x3d_l1
+        ssc, occ = self.ssc_head(self.up_l1_lfull(x3d_up_l1))
+        res["ssc_logit"] = ssc
+        if occ is not None:
+            res["occ_logit"] = occ
+        return res
