@@ -5,9 +5,10 @@ Module paths mirror it (`models/efficientnet.py`, `ops/flosp_gather.py`,
 ...), modules run in PyTorch's NCHW/NCDHW layouts, and the model's public
 boundary keeps the JAX package's batch dict and channels-last outputs.
 
-The TPU kernels on the serving path are hand-written CUDA C++ for sm_90a
-(`csrc/`), built with nvcc at first CUDA use (`ops/cuda_lib.py`).  Each has
-a plain PyTorch version beside it that runs for CPU tensors.
+The TPU kernels on the serving and training paths are hand-written CUDA
+C++ for sm_90a (`csrc/`), built with nvcc at first CUDA use
+(`ops/cuda_lib.py`).  Each has a plain PyTorch version beside it that runs
+for CPU tensors.
 
 This package imports neither JAX nor the JAX package.
 """

@@ -1,18 +1,22 @@
-"""Fixed-schema inference batches (NumPy).
+"""Fixed-schema synthetic batches (NumPy).
 
-The model-input keys of `occdepth_tpu/data/batch.py::make_synthetic_batch`,
-bit-identical to it for the same config and seed:
+`make_synthetic_batch` is `occdepth_tpu/data/batch.py::make_synthetic_batch`,
+bit-identical to it for the same config and seed (the same RandomState
+draws in the same order):
 
-    img:            (B, V, H, W, 3) float32 (normalized RGB)
-    projected_pix:  (B, Vl, N, P, 2) int32 — at project_scale
-    fov_mask:       (B, Vl, N, P) bool
-    cam_k:          (B, V, 3, 3) float32
-    T_velo_2_cam:   (B, V, 4, 4) float32
-    ida_mats:       (B, V, 4, 4) float32
-    vox_origin:     (B, 3) float32   [NYU/tartanair]
-    virtual_bf:     (B,) float32     [NYU]
-
-Labels and depth targets belong to the training slice.
+    img:                  (B, V, H, W, 3) float32 (normalized RGB)
+    projected_pix:        (B, Vl, N, P, 2) int32 — at project_scale
+    fov_mask:             (B, Vl, N, P) bool
+    cam_k:                (B, V, 3, 3) float32
+    T_velo_2_cam:         (B, V, 4, 4) float32
+    ida_mats:             (B, V, 4, 4) float32
+    vox_origin:           (B, 3) float32               [NYU/tartanair]
+    virtual_bf:           (B,) float32                 [NYU]
+  with_labels=True adds the training targets:
+    gt_depth:             (B, Vd, H, W) float32        [if depth supervision]
+    target:               (B, X, Y, Z) int32 (255 = invalid)
+    CP_mega_matrices:     (B, n_rel, N8, M8) uint8     [if CRP]
+    frustums_class_dists: (B, F, C) float32            [if fp loss]
 """
 from __future__ import annotations
 
@@ -21,7 +25,11 @@ from typing import Dict
 import numpy as np
 
 from occdepth_tpu_torch.config import OccDepthConfig
+from occdepth_tpu_torch.geometry.frustums_mask import compute_frustum_class_dists
 from occdepth_tpu_torch.geometry.projection import vox2pix
+from occdepth_tpu_torch.geometry.relations import compute_cp_mega_matrix
+
+VIRTUAL_BASELINE = 0.1  # metres: the NYU virtual right camera's baseline
 
 
 def default_intrinsics(cfg: OccDepthConfig) -> np.ndarray:
@@ -64,8 +72,10 @@ def make_synthetic_batch(
     cfg: OccDepthConfig,
     batch_size: int = 1,
     seed: int = 0,
+    with_labels: bool = False,
 ) -> Dict[str, np.ndarray]:
-    """Random but geometrically consistent inference batch."""
+    """Random but geometrically consistent batch; `with_labels` adds the
+    depth and label targets a train step needs."""
     rs = np.random.RandomState(seed)
     H, W = cfg.img_shape
     V = cfg.n_views
@@ -111,4 +121,63 @@ def make_synthetic_batch(
         batch["virtual_bf"] = np.full(
             (batch_size,), 0.1 * 518.8579, np.float32
         )
+    if with_labels:
+        _add_labels(cfg, batch, rs, cam_k, vox_origin)
     return batch
+
+
+def _add_labels(cfg: OccDepthConfig, batch: Dict[str, np.ndarray],
+                rs: np.random.RandomState, cam_k: np.ndarray,
+                vox_origin: np.ndarray) -> None:
+    B = batch["img"].shape[0]
+    H, W = cfg.img_shape
+    V = cfg.n_views
+    if cfg.with_depth_gt:
+        Vd = 1 if (cfg.use_stereo_depth_gt or cfg.use_depth_gt) else V
+        depth = rs.uniform(0.0, 40.0, size=(B, Vd, H, W))
+        depth[depth < 2.0] = 0.0
+        batch["gt_depth"] = depth.astype(np.float32)
+
+    X, Y, Z = cfg.full_scene_size
+    target = rs.choice(
+        np.arange(cfg.n_classes + 1), size=(B, X, Y, Z),
+        p=_label_probs(cfg.n_classes),
+    ).astype(np.int32)
+    target[target == cfg.n_classes] = 255
+    batch["target"] = target
+    if cfg.context_prior:
+        # relation GT at the scale the CRP sees
+        rel_scale = 8 if cfg.dataset == "kitti" else 4
+        tgt = target[:, ::rel_scale, ::rel_scale, ::rel_scale]
+        batch["CP_mega_matrices"] = np.stack(
+            [compute_cp_mega_matrix(t, cfg.n_relations == 2) for t in tgt])
+    if cfg.fp_loss:
+        # histograms at output scale; the voxel masks are rebuilt on the
+        # device inside the fp loss from the same calibration
+        exts = [default_extrinsics(cfg, v) for v in range(V)]
+        if cfg.dataset == "NYU" and cfg.use_depth_gt:
+            shift = np.eye(4)
+            shift[0, 3] = -VIRTUAL_BASELINE
+            exts.append(shift @ exts[0])
+        po, zo = [], []
+        for T in exts:
+            p, _, z = vox2pix(
+                T, cam_k, vox_origin, cfg.voxel_size_meters * cfg.output_scale,
+                W, H, cfg.scene_size_meters, cfg.pattern_id,
+            )
+            po.append(p)
+            zo.append(z)
+        pix_o = np.stack(po).astype(np.int64)
+        pz_o = np.stack(zo).astype(np.float32)
+        batch["frustums_class_dists"] = np.stack([
+            compute_frustum_class_dists(pix_o, pz_o, t, W, H, cfg.dataset,
+                                        cfg.n_classes, cfg.frustum_size)
+            for t in target
+        ]).astype(np.float32)
+
+
+def _label_probs(n_classes: int) -> np.ndarray:
+    p = np.full(n_classes + 1, 0.3 / n_classes)
+    p[0] = 0.6  # mostly empty, like real scenes
+    p[-1] = 0.1 + (0.3 - p[1:-1].sum() - 0.0)  # 255 share
+    return p / p.sum()

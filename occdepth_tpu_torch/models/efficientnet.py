@@ -8,6 +8,9 @@ and parameter names of the gen-efficientnet model the reference loads
   * BatchNorm eps 1e-3, SiLU, SE ratio 0.25 of the block *input* channels,
   * per-variant width/depth scaling with divisor-8 channel rounding,
   * taps (input, stage0, stage1, stage2, stage4, conv_head before bn2).
+
+`dw_grad` is cfg.dw_conv_grad: under 'pallas' every stride-1 depthwise
+conv takes its filter gradient from kernel K4 (`ops/dw_conv.py`).
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from occdepth_tpu_torch.models.layers import (
     Conv2dSame,
     batch_norm2d,
 )
+from occdepth_tpu_torch.ops.dw_conv import dw_conv2d_fastgrad, use_fast_dw_grad
 
 # (width_coefficient, depth_coefficient)
 VARIANTS = {
@@ -75,6 +79,20 @@ def _bn(c: int) -> nn.BatchNorm2d:
     return batch_norm2d(c, eps=BN_EPS_TF)
 
 
+class DWConv2d(Conv2dSame):
+    """Depthwise TF-SAME conv; stride-1 odd-kernel convs route their
+    backward through K4 when `use_fast_dw_grad(dw_grad, k, stride)`."""
+
+    def __init__(self, chs: int, k: int, stride: int, dw_grad: str = "xla"):
+        super().__init__(chs, chs, k, stride, groups=chs)
+        self.fast_grad = use_fast_dw_grad(dw_grad, k, stride)
+
+    def forward(self, x):
+        if self.fast_grad:
+            return dw_conv2d_fastgrad(x, self.weight.to(x.dtype))
+        return super().forward(x)
+
+
 class SqueezeExcite(nn.Module):
     def __init__(self, chs: int, reduced: int):
         super().__init__()
@@ -90,9 +108,10 @@ class SqueezeExcite(nn.Module):
 class DepthwiseSeparable(nn.Module):
     """Stage-0 block (expand ratio 1, no pointwise expansion)."""
 
-    def __init__(self, in_chs: int, out_chs: int, k: int):
+    def __init__(self, in_chs: int, out_chs: int, k: int,
+                 dw_grad: str = "xla"):
         super().__init__()
-        self.conv_dw = Conv2dSame(in_chs, in_chs, k, 1, groups=in_chs)
+        self.conv_dw = DWConv2d(in_chs, k, 1, dw_grad)
         self.bn1 = _bn(in_chs)
         self.se = SqueezeExcite(in_chs, max(1, int(in_chs * 0.25)))
         self.conv_pw = Conv2d(in_chs, out_chs, 1, bias=False)
@@ -109,12 +128,12 @@ class MBConv(nn.Module):
     """Inverted residual block (gen-efficientnet InvertedResidual)."""
 
     def __init__(self, in_chs: int, out_chs: int, expand: int, k: int,
-                 stride: int):
+                 stride: int, dw_grad: str = "xla"):
         super().__init__()
         mid = in_chs * expand
         self.conv_pw = Conv2d(in_chs, mid, 1, bias=False)
         self.bn1 = _bn(mid)
-        self.conv_dw = Conv2dSame(mid, mid, k, stride, groups=mid)
+        self.conv_dw = DWConv2d(mid, k, stride, dw_grad)
         self.bn2 = _bn(mid)
         self.se = SqueezeExcite(mid, max(1, int(in_chs * 0.25)))
         self.conv_pwl = Conv2d(mid, out_chs, 1, bias=False)
@@ -131,7 +150,8 @@ class MBConv(nn.Module):
 class EfficientNet(nn.Module):
     """EfficientNet trunk returning the UNet2D taps."""
 
-    def __init__(self, variant: str = "tf_efficientnet_b3_ns"):
+    def __init__(self, variant: str = "tf_efficientnet_b3_ns",
+                 dw_grad: str = "xla"):
         super().__init__()
         cfg = variant_channels(variant)
         self.conv_stem = Conv2dSame(3, cfg["stem"], 3, 2)
@@ -144,9 +164,11 @@ class EfficientNet(nn.Module):
             for bi in range(cfg["repeats"][si]):
                 s = stride if bi == 0 else 1
                 if expand == 1:
-                    blocks.append(DepthwiseSeparable(in_chs, out_chs, kernel))
+                    blocks.append(DepthwiseSeparable(in_chs, out_chs, kernel,
+                                                     dw_grad))
                 else:
-                    blocks.append(MBConv(in_chs, out_chs, expand, kernel, s))
+                    blocks.append(MBConv(in_chs, out_chs, expand, kernel, s,
+                                         dw_grad))
                 in_chs = out_chs
             stages.append(nn.Sequential(*blocks))
         self.blocks = nn.Sequential(*stages)

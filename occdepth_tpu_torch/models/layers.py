@@ -15,7 +15,10 @@ Numerics (docs/DESIGN.md "Numerics policy"), by explicit casts rather than
 
 BatchNorm conventions (PARITY.md "Known deliberate divergences"): torch
 momentum m is flax momentum 1 - m; eps is 1e-5, except 1e-3 in the
-`tf_efficientnet` encoder.
+`tf_efficientnet` encoder.  In training mode the running statistics follow
+the JAX package's `_BNCore`, not stock PyTorch: the running variance is
+updated with the *biased* one-pass batch variance max(0, E[x^2] - E[x]^2)
+(stock `nn.BatchNorm` uses the unbiased one).
 """
 from __future__ import annotations
 
@@ -67,13 +70,48 @@ class Linear(nn.Linear):
         return F.linear(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype))
 
 
+class _TrainStatsMixin:
+    """Train-mode forward of the JAX package's `_BNCore`.
+
+    The output normalises with the batch statistics in float32 (PyTorch's
+    mixed-dtype `batch_norm`, so the backward stores only the input and
+    two per-channel vectors); the running statistics advance by
+    (1 - m) * running + m * stat with the biased one-pass variance
+    max(0, E[x^2] - E[x]^2), computed in float32 as the JAX package does.
+    Eval mode is stock `nn.BatchNorm`.
+    """
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            dims = [0] + list(range(2, x.dim()))
+            xf = x.float()
+            mean = xf.mean(dims)
+            var = (xf.square().mean(dims) - mean.square()).clamp_(min=0.0)
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(m * mean)
+            self.running_var.mul_(1.0 - m).add_(m * var)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps)
+
+
+class BatchNorm2d(_TrainStatsMixin, nn.BatchNorm2d):
+    pass
+
+
+class BatchNorm3d(_TrainStatsMixin, nn.BatchNorm3d):
+    pass
+
+
 def batch_norm2d(c: int, eps: float = BN_EPS,
-                 momentum: float = 0.1) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=eps, momentum=momentum)
+                 momentum: float = 0.1) -> BatchNorm2d:
+    return BatchNorm2d(c, eps=eps, momentum=momentum)
 
 
-def batch_norm3d(c: int, momentum: float = 0.1) -> nn.BatchNorm3d:
-    return nn.BatchNorm3d(c, eps=BN_EPS, momentum=momentum)
+def batch_norm3d(c: int, momentum: float = 0.1) -> BatchNorm3d:
+    return BatchNorm3d(c, eps=BN_EPS, momentum=momentum)
 
 
 def tf_same_pad(x: torch.Tensor, k: int, s: int) -> torch.Tensor:

@@ -1,8 +1,8 @@
 """OccDepth top-level model: 2D backbone -> SFA lift -> OAD -> 3D UNet.
 
-Counterpart of `occdepth_tpu/models/occdepth.py::OccDepthModel`, eval mode,
-KITTI/TartanAir stereo.  The public boundary keeps the JAX package's
-layouts:
+Counterpart of `occdepth_tpu/models/occdepth.py::OccDepthModel`,
+KITTI/TartanAir stereo, in eval and train mode.  The public boundary keeps
+the JAX package's layouts:
 
     batch (all tensors on one device):
         img:            (B, V, H, W, 3) normalized RGB
@@ -18,6 +18,12 @@ layouts:
         depth_pred: (B, V, h, w, D) float32            [with_depth_gt]
 
 The channels-last outputs are permuted views of NCDHW float32 tensors.
+
+In train mode with several views the backbone runs once per view, as the
+reference does, so BatchNorm batch statistics are per view and the running
+statistics advance view 0 first.  Under `share_2d_backbone_gradient` views
+after the first run under `torch.no_grad()`: the same gradient as the JAX
+package's `stop_gradient`, without building their backward graph.
 
 Numerics follow `compute_dtype` (see models/layers.py): the image is cast
 once, convolutions run in that dtype, while BatchNorm, the softmaxes, the
@@ -41,7 +47,7 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 class OccDepthModel(nn.Module):
-    """End-to-end SSC model for one config (eval-mode forward)."""
+    """End-to-end SSC model for one config."""
 
     def __init__(self, cfg: OccDepthConfig):
         super().__init__()
@@ -52,7 +58,7 @@ class OccDepthModel(nn.Module):
         self.cfg = cfg
         self.compute_dtype = _DTYPES[cfg.compute_dtype]
         self.net_rgb = UNet2D(cfg.backbone_2d_name, cfg.feature_2d_oc,
-                              cfg.return_up_feats)
+                              cfg.return_up_feats, cfg.dw_conv_grad)
         self.net_3d_decoder = UNet3DKitti(
             cfg.n_classes, cfg.feature, cfg.full_scene_size,
             project_scale=cfg.project_scale,
@@ -65,21 +71,33 @@ class OccDepthModel(nn.Module):
                 cfg.dataset, return_depth=cfg.with_depth_gt,
             )
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        if self.training:
-            raise NotImplementedError("the training forward is not ported yet")
-        cfg = self.cfg
-        dtype = self.compute_dtype
-        img = batch["img"]
+    def backbone_features(self, img: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """(B, V, H, W, 3) views -> {'1_s': (B, V, C, h, w)}."""
         B, V, H, W, _ = img.shape
 
-        # ---- 2D backbone: all views in one call (frozen BN at eval) ----
-        x = img.reshape(B * V, H, W, 3).permute(0, 3, 1, 2).to(
-            dtype=dtype, memory_format=torch.contiguous_format)
-        feats = {
-            k: v.reshape(B, V, *v.shape[1:])
-            for k, v in self.net_rgb(x).items()
-        }  # '1_s': (B, V, C, h, w)
+        def nchw(x):
+            return x.permute(0, 3, 1, 2).to(
+                dtype=self.compute_dtype, memory_format=torch.contiguous_format)
+
+        if not (self.training and V > 1):
+            # all views in one call (frozen BN at eval)
+            x = nchw(img.reshape(B * V, H, W, 3))
+            return {k: v.reshape(B, V, *v.shape[1:])
+                    for k, v in self.net_rgb(x).items()}
+        per_view = []
+        for view in range(V):
+            if self.cfg.share_2d_backbone_gradient and view > 0:
+                with torch.no_grad():
+                    per_view.append(self.net_rgb(nchw(img[:, view])))
+            else:
+                per_view.append(self.net_rgb(nchw(img[:, view])))
+        return {k: torch.stack([f[k] for f in per_view], dim=1)
+                for k in per_view[0]}
+
+    def forward(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        cfg = self.cfg
+        dtype = self.compute_dtype
+        feats = self.backbone_features(batch["img"])  # '1_s': (B, V, C, h, w)
 
         # ---- FLoSP lift + Stereo-SFA fusion (float32) ----
         x3d = sfa_lift(

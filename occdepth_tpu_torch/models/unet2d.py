@@ -36,9 +36,9 @@ class UpSampleBN(nn.Module):
 
 
 class Encoder(nn.Module):
-    def __init__(self, variant: str):
+    def __init__(self, variant: str, dw_grad: str = "xla"):
         super().__init__()
-        self.original_model = EfficientNet(variant)
+        self.original_model = EfficientNet(variant, dw_grad)
 
     def forward(self, x):
         return self.original_model(x)
@@ -83,9 +83,10 @@ class UNet2D(nn.Module):
     """Encoder + DecoderBN producing {'1_1', '1_2', '1_4', '1_8', '1_16'}."""
 
     def __init__(self, backbone_2d_name: str = "tf_efficientnet_b3_ns",
-                 out_feature: int = 32, return_up_feats: int = 1):
+                 out_feature: int = 32, return_up_feats: int = 1,
+                 dw_conv_grad: str = "xla"):
         super().__init__()
-        self.encoder = Encoder(backbone_2d_name)
+        self.encoder = Encoder(backbone_2d_name, dw_conv_grad)
         self.decoder = DecoderBN(backbone_2d_name, out_feature,
                                  return_up_feats)
 

@@ -2,7 +2,12 @@
 
 Counterpart of `occdepth_tpu/ops/pallas_kernels.py::crp_relation_matmul`.
 For CPU tensors the wrapper runs the plain PyTorch version; for CUDA
-tensors it launches the kernel or raises.
+tensors it launches the kernel or raises.  On CUDA with gradients enabled
+the kernel is the forward of an autograd Function whose backward is the
+plain version's gradient as two matmuls (the JAX package computes them
+outside any Pallas kernel too):
+
+    dP = (dOut @ mega^T) * s * (1 - s),   dmega = s^T @ dOut,   s = sigmoid(P)
 """
 from __future__ import annotations
 
@@ -35,6 +40,33 @@ def crp_relation_matmul(p_logit: torch.Tensor,
     """
     if p_logit.device.type == "cpu":
         return crp_relation_matmul_reference(p_logit, mega)
+    if torch.is_grad_enabled() and (p_logit.requires_grad
+                                    or mega.requires_grad):
+        return _CrpMatmulFn.apply(p_logit, mega)
+    return _launch(p_logit, mega)
+
+
+class _CrpMatmulFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, p_logit, mega):
+        ctx.save_for_backward(p_logit, mega)
+        return _launch(p_logit, mega)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        p_logit, mega = ctx.saved_tensors
+        s = torch.sigmoid(p_logit.float())
+        d_p = d_mega = None
+        if ctx.needs_input_grad[0]:
+            d_p = (grad_out @ mega.float().transpose(-1, -2)) * (s * (1.0 - s))
+            d_p = d_p.to(p_logit.dtype)
+        if ctx.needs_input_grad[1]:
+            d_mega = (s.transpose(-1, -2) @ grad_out).to(mega.dtype)
+        return d_p, d_mega
+
+
+def _launch(p_logit, mega):
+    """The kernel launch behind `crp_relation_matmul` (CUDA tensors)."""
     squeeze = p_logit.dim() == 2
     if squeeze:
         p_logit, mega = p_logit.unsqueeze(0), mega.unsqueeze(0)

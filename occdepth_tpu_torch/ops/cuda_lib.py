@@ -1,10 +1,11 @@
 """Build and load the port's hand-written CUDA kernels.
 
 All `csrc/*.cu` sources compile with nvcc into one shared library with a
-plain C interface, loaded with ctypes.  The build runs at the first CUDA
-use, never at import, and is keyed by a hash of the sources and flags: a
-fresh checkout builds once into `build/kernels/` at the repo root (listed
-in .gitignore) and later processes reuse the library.
+plain C interface, loaded with ctypes: one nvcc per source, all started
+together, then one link.  The build runs at the first CUDA use, never at
+import, and is keyed by a hash of the sources and flags: a fresh checkout
+builds once into `build/kernels/` at the repo root (listed in .gitignore)
+and later processes reuse the library.
 
 Each C entry point takes raw device pointers, sizes, strides and the CUDA
 stream, launches on that stream without synchronising, and returns
@@ -29,7 +30,7 @@ BUILD_DIR = os.path.join(
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -43,6 +44,9 @@ _SIGNATURES = {
     ),
     "occ_crp_relation_matmul": (
         [_P, _P, _P, ctypes.c_int] + [_I64] * 13 + [_P]
+    ),
+    "occ_dw_filter_grad": (
+        [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int] + [_I64] * 14 + [_P]
     ),
 }
 
@@ -86,21 +90,34 @@ def build() -> tuple:
     if os.path.exists(lib_path):
         return lib_path, 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
+    nvcc = _nvcc()
+    log = []
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs = [os.path.join(work, os.path.basename(src) + ".o")
+                for src in sources]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+                for src, obj in zip(sources, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        outs = [proc.communicate()[0] for proc in procs]
+        tmp = os.path.join(work, "lib.so")
+        link = [nvcc, "-shared", *NVCC_FLAGS[:2], "-o", tmp, *objs]
+        runs = list(zip(cmds, [proc.returncode for proc in procs], outs))
+        if all(rc == 0 for _, rc, _ in runs):
+            proc = subprocess.run(link, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+            runs.append((link, proc.returncode, proc.stdout))
+        for cmd, rc, out in runs:
+            log.append(f"$ {' '.join(cmd)}\n{out}")
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}):\n" + log[-1])
+        # atomic: a concurrent build never sees half a file
+        os.replace(tmp, lib_path)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, lib_path)  # atomic: a concurrent build never sees half a file
     with open(lib_path + ".log", "w") as f:
-        f.write(proc.stdout + proc.stderr)
+        f.write("\n".join(log))
     return lib_path, seconds
 
 

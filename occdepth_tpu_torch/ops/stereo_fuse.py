@@ -2,7 +2,10 @@
 
 Counterpart of `occdepth_tpu/ops/pallas_kernels.py::stereo_cosine_fuse`.
 For CPU tensors the wrapper runs the plain PyTorch version; for CUDA
-tensors it launches the kernel or raises.
+tensors it launches the kernel or raises.  On CUDA with gradients enabled
+the kernel is the forward of an autograd Function whose backward is the
+gradient of the plain version, recomputed from the saved inputs: the JAX
+package has no backward kernel either (it differentiates the jnp formula).
 """
 from __future__ import annotations
 
@@ -40,6 +43,33 @@ def stereo_cosine_fuse(
     """
     if f0.device.type == "cpu":
         return stereo_cosine_fuse_reference(f0, f1, m0, m1, eps)
+    args = (f0, f1, m0, m1)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _StereoFuseFn.apply(*args, eps)
+    return _launch(*args, eps)
+
+
+class _StereoFuseFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, f0, f1, m0, m1, eps):
+        ctx.save_for_backward(f0, f1, m0, m1)
+        ctx.eps = eps
+        return _launch(f0, f1, m0, m1, eps)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        inputs = [t.detach().requires_grad_(need) for t, need in
+                  zip(ctx.saved_tensors, ctx.needs_input_grad[:4])]
+        wanted = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            out = stereo_cosine_fuse_reference(*inputs, ctx.eps)
+        grads = iter(torch.autograd.grad(out, wanted, grad_out))
+        return tuple(next(grads) if t.requires_grad else None
+                     for t in inputs) + (None,)
+
+
+def _launch(f0, f1, m0, m1, eps):
+    """The kernel launch behind `stereo_cosine_fuse` (CUDA tensors)."""
     squeeze = f0.dim() == 2
     if squeeze:
         f0, f1, m0, m1 = (t.unsqueeze(0) for t in (f0, f1, m0, m1))

@@ -1,6 +1,8 @@
-"""Reduced-size configs and seeded random weights for tests and smoke runs."""
+"""Reduced-size configs, seeded random weights and the fp32-noise-aware
+comparison helpers for tests and smoke runs."""
 from __future__ import annotations
 
+import copy
 import math
 
 import torch
@@ -79,3 +81,43 @@ def randomize_weights(model: nn.Module, seed: int) -> nn.Module:
             if m.bias is not None:
                 m.bias.copy_(normal(m.bias.shape, 0.01))
     return model
+
+
+@torch.no_grad()
+def perturbed_copy(model: nn.Module, seed: int,
+                   rel: float = 1e-7) -> nn.Module:
+    """A deep copy whose parameters are scaled by (1 + rel * N(0, 1)):
+    an fp32-rounding-sized change, the yardstick of a network's own fp32
+    gradient noise."""
+    out = copy.deepcopy(model)
+    g = torch.Generator().manual_seed(seed)
+    for p in out.parameters():
+        p.mul_(1.0 + rel * torch.randn(p.shape, generator=g).to(p.device))
+    return out
+
+
+def noise_aware_worst(ours: dict, ref: dict, perturbed: list, rtol: float,
+                      noise_mult: float) -> list:
+    """[(err / tol, name, err, tol), ...] worst first, with L2 norms per
+    named tensor: err = |ours - ref|, tol = max(rtol * |ref| + 1e-6,
+    noise_mult * max over `perturbed` of |ours - perturbed|)."""
+    worst = []
+    for name, t in ours.items():
+        t = t.detach().double().cpu()
+        r = torch.as_tensor(ref[name]).double().cpu()
+        err = float(torch.linalg.vector_norm(t - r))
+        noise = max(float(torch.linalg.vector_norm(
+            t - torch.as_tensor(q[name]).double().cpu())) for q in perturbed)
+        tol = max(rtol * float(torch.linalg.vector_norm(r)) + 1e-6,
+                  noise_mult * noise)
+        ratio = err / tol if math.isfinite(err) else math.inf  # NaN fails
+        worst.append((ratio, name, err, tol))
+    worst.sort(reverse=True)
+    return worst
+
+
+def count_flips(a: dict, b: dict, threshold: float) -> int:
+    """Elements whose values differ by more than `threshold` over the
+    named tensors of `a` (e.g. AdamW first-step updates of opposite sign)."""
+    return sum(int(((a[n].detach().cpu() - torch.as_tensor(b[n]).cpu()
+                     ).abs() > threshold).sum()) for n in a)

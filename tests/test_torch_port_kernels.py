@@ -1,6 +1,6 @@
-"""Port kernels K1/K2: plain versions vs the JAX Pallas kernels (interpret
-mode on the CPU), and the CUDA kernels vs the plain versions (`cuda`
-marker, skipped without a card).
+"""Port kernels K1/K2/K4: plain versions vs the JAX Pallas kernels
+(interpret mode on the CPU), their autograd, and the CUDA kernels vs the
+plain versions (`cuda` marker, skipped without a card).
 
 JAX is imported inside the tests that compare with it, so the `cuda` cases
 also run on a GPU host without JAX:
@@ -13,6 +13,12 @@ import torch
 from occdepth_tpu_torch.ops.crp_matmul import (
     crp_relation_matmul,
     crp_relation_matmul_reference,
+)
+from occdepth_tpu_torch.ops.dw_conv import (
+    dw_conv2d_fastgrad,
+    dw_filter_grad,
+    dw_filter_grad_reference,
+    use_fast_dw_grad,
 )
 from occdepth_tpu_torch.ops.stereo_fuse import (
     stereo_cosine_fuse,
@@ -124,3 +130,132 @@ def test_kernels_raise_on_unsupported_input(cuda_device):
     with pytest.raises(TypeError):
         crp_relation_matmul(p, torch.randn(8, 3, device=cuda_device,
                                            dtype=torch.bfloat16))
+
+
+def _dw_inputs(rng, shape):
+    x = rng.randn(*shape).astype(np.float32)
+    g = rng.randn(*shape).astype(np.float32)
+    return x, g
+
+
+@pytest.mark.parametrize("k", [3, 5])
+@pytest.mark.parametrize("shape", [(2, 24, 16, 20), (1, 40, 13, 19)],
+                         ids=["even", "odd"])
+def test_dw_filter_grad_plain_matches_pallas_interpret(k, shape):
+    """K4's plain version (NCHW, (C, 1, k, k)) vs the JAX package's Pallas
+    kernel in interpret mode and its fp32 reference (NHWC, (k, k, 1, C))."""
+    jnp = pytest.importorskip("jax.numpy")
+    from occdepth_tpu.ops.dw_conv import (
+        dw_filter_grad_pallas,
+        dw_filter_grad_reference as jax_reference,
+    )
+
+    rng = np.random.RandomState(9 + k)
+    x, g = _dw_inputs(rng, shape)
+    ours = dw_filter_grad(torch.from_numpy(x), torch.from_numpy(g), k, k)
+    assert ours.shape == (shape[1], 1, k, k) and ours.dtype == torch.float32
+    xh, gh = (jnp.asarray(a.transpose(0, 2, 3, 1)) for a in (x, g))
+    for ref in (dw_filter_grad_pallas(xh, gh, k, k, interpret=True),
+                jax_reference(xh, gh, k, k)):
+        ref = np.asarray(ref).transpose(3, 2, 0, 1)  # (k,k,1,C) -> (C,1,k,k)
+        np.testing.assert_allclose(ours.numpy(), ref, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("k", [3, 5])
+def test_dw_conv2d_fastgrad_matches_stock_autograd(k):
+    rng = np.random.RandomState(k)
+    x0 = torch.from_numpy(rng.randn(2, 12, 11, 14).astype(np.float32))
+    w0 = torch.from_numpy(rng.randn(12, 1, k, k).astype(np.float32))
+    cot = torch.from_numpy(rng.randn(2, 12, 11, 14).astype(np.float32))
+    grads = []
+    for fn in (dw_conv2d_fastgrad,
+               lambda x, w: torch.nn.functional.conv2d(
+                   x, w, None, 1, k // 2, 1, x.shape[1])):
+        x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+        out = fn(x, w)
+        out.backward(cot)
+        grads.append((out.detach(), x.grad, w.grad))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def test_dw_conv2d_fastgrad_bf16_returns_weight_dtype():
+    """dw comes back in the weight's compute dtype (bf16), rounded once
+    from the fp32 sums, as the JAX package's VJP returns it."""
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(rng.randn(1, 8, 9, 10).astype(np.float32)).bfloat16()
+    w = torch.from_numpy(rng.randn(8, 1, 3, 3).astype(np.float32)).bfloat16()
+    w.requires_grad_()
+    cot = torch.from_numpy(rng.randn(1, 8, 9, 10).astype(np.float32)).bfloat16()
+    dw_conv2d_fastgrad(x, w).backward(cot)
+    assert w.grad.dtype == torch.bfloat16
+    ref = dw_filter_grad_reference(x.float(), cot.float(), 3, 3)
+    assert torch.equal(w.grad, ref.bfloat16())
+
+
+@pytest.mark.parametrize("mode,k,stride,expected", [
+    ("pallas", 3, 1, True), ("pallas", 5, 1, True), ("pallas", 3, 2, False),
+    ("pallas", 4, 1, False), ("xla", 3, 1, False), ("auto", 5, 1, False),
+])
+def test_use_fast_dw_grad_gate(mode, k, stride, expected):
+    from occdepth_tpu.ops.dw_conv import use_fast_dw_grad as jax_gate
+
+    assert use_fast_dw_grad(mode, k, stride) is expected
+    assert jax_gate(mode, k, stride) is expected
+    with pytest.raises(ValueError):
+        use_fast_dw_grad("fused", k, stride)
+
+
+def test_encoder_routes_stride1_dw_convs_through_k4():
+    """22 of the b3 encoder's 26 depthwise convs are stride-1 (4 blocks
+    open a stage with stride 2): exactly those take K4 under 'pallas'."""
+    from occdepth_tpu_torch.models.efficientnet import DWConv2d, EfficientNet
+
+    for mode, n in (("pallas", 22), ("xla", 0)):
+        enc = EfficientNet("tf_efficientnet_b3_ns", dw_grad=mode)
+        dws = [m for m in enc.modules() if isinstance(m, DWConv2d)]
+        assert len(dws) == 26
+        assert sum(m.fast_grad for m in dws) == n
+        assert all(m.stride[0] == 1 for m in dws if m.fast_grad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,k", [((1, 40, 185, 610), 3),
+                                     ((2, 288, 47, 153), 5),
+                                     ((1, 2304, 12, 39), 3),
+                                     ((1, 7, 5, 3), 5)])
+def test_dw_filter_grad_kernel_matches_plain(cuda_device, dtype, shape, k):
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    x = torch.randn(*shape, device=cuda_device, generator=g).to(dtype)
+    gy = torch.randn(*shape, device=cuda_device, generator=g).to(dtype)
+    before = dw_filter_grad.launches
+    out = dw_filter_grad(x, gy, k, k)
+    again = dw_filter_grad(x, gy, k, k)
+    torch.cuda.synchronize()
+    assert dw_filter_grad.launches == before + 2
+    assert torch.equal(out, again)  # fixed-order reduction: deterministic
+    ref = dw_filter_grad_reference(x.float(), gy.float(), k, k)
+    assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+    # strided (channels-last) inputs through their strides
+    xc = x.contiguous(memory_format=torch.channels_last)
+    gc = gy.contiguous(memory_format=torch.channels_last)
+    assert (dw_filter_grad(xc, gc, k, k) - ref).abs().max().item() <= \
+        1e-4 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_kernel_autograd_functions_have_grad_fn(cuda_device):
+    f = torch.randn(2, 50, 8, device=cuda_device, requires_grad=True)
+    m = torch.ones(2, 50, device=cuda_device)
+    assert stereo_cosine_fuse(f, f * 2, m, m).grad_fn is not None
+    p = torch.randn(40, 16, device=cuda_device, requires_grad=True)
+    mega = torch.randn(16, 8, device=cuda_device)
+    assert crp_relation_matmul(p, mega).grad_fn is not None
+    x = torch.randn(1, 4, 6, 6, device=cuda_device, requires_grad=True)
+    w = torch.randn(4, 1, 3, 3, device=cuda_device, requires_grad=True)
+    before = dw_filter_grad.launches
+    dw_conv2d_fastgrad(x, w).sum().backward()
+    assert dw_filter_grad.launches == before + 1
+    ref = dw_filter_grad_reference(x.detach(), torch.ones_like(x), 3, 3)
+    torch.testing.assert_close(w.grad, ref, rtol=1e-5, atol=1e-5)

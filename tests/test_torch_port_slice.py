@@ -10,6 +10,7 @@ import subprocess
 import sys
 import textwrap
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -26,6 +27,16 @@ from occdepth_tpu_torch.weights import state_dict_from_jax
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The tier-1 gate runs six test processes on a few cores; this file's
+    tiny-shape torch work (and its subprocesses, by OMP_NUM_THREADS) takes
+    one thread so it does not crowd the others."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 def _numpy_sd(model):
     return {k: v.numpy() for k, v in model.state_dict().items()}
@@ -46,8 +57,10 @@ def slice_outputs():
     batch = make_synthetic_batch(cfg, batch_size=1, seed=11)
     with torch.no_grad():
         ours = port({k: torch.from_numpy(v) for k, v in batch.items()})
-    ref = JaxOccDepthModel(cfg=jax_tiny_kitti()).apply(variables, batch,
-                                                       train=False)
+    # jitted: one compile costs less than eager JAX's per-op dispatch
+    model = JaxOccDepthModel(cfg=jax_tiny_kitti())
+    ref = jax.jit(lambda v, b: model.apply(v, b, train=False))(variables,
+                                                                batch)
     return ({k: v.numpy() for k, v in ours.items()},
             {k: np.asarray(v) for k, v in ref.items()})
 
@@ -136,8 +149,70 @@ def test_serving_imports_no_jax():
         assert not jax_side, jax_side
         print("ok")
     """)
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip().endswith("ok")
+
+
+def test_training_imports_no_jax(tmp_path):
+    """Every training-slice module imports, and the tiny Trainer takes 2
+    CPU steps (K4's path included), with jax, flax and the JAX package
+    unimportable."""
+    code = textwrap.dedent("""
+        import sys
+        for name in ("jax", "flax", "jaxlib", "optax", "occdepth_tpu"):
+            sys.modules[name] = None
+        import json
+        import occdepth_tpu_torch.data.params
+        import occdepth_tpu_torch.geometry.frustums_mask
+        import occdepth_tpu_torch.geometry.relations
+        import occdepth_tpu_torch.losses
+        import occdepth_tpu_torch.losses.crp
+        import occdepth_tpu_torch.losses.depth
+        import occdepth_tpu_torch.losses.fp_device
+        import occdepth_tpu_torch.losses.metrics
+        import occdepth_tpu_torch.losses.ssc
+        import occdepth_tpu_torch.ops.dw_conv
+        import occdepth_tpu_torch.training.checkpoint
+        import occdepth_tpu_torch.training.logging
+        import occdepth_tpu_torch.training.optim
+        import occdepth_tpu_torch.training.step
+        import occdepth_tpu_torch.training.trainer
+        from occdepth_tpu_torch.data.batch import make_synthetic_batch
+        from occdepth_tpu_torch.testing import tiny_kitti_config
+        from occdepth_tpu_torch.training import Trainer
+
+        cfg = tiny_kitti_config(dw_conv_grad="pallas", log_every_n_steps=1)
+        batches = [make_synthetic_batch(cfg, 1, seed=s, with_labels=True)
+                   for s in (0, 1)]
+        trainer = Trainer(cfg, sys.argv[1], device="cpu").fit(batches, 2)
+        assert trainer.step == 2, trainer.step
+        with open(trainer.metrics_logger.path) as f:
+            recs = [json.loads(line) for line in f]
+        assert [r["step"] for r in recs if "train/loss" in r] == [1, 2]
+        assert Trainer(cfg, sys.argv[1], device="cpu").step == 2
+        jax_side = sorted(
+            m for m, mod in sys.modules.items() if mod is not None
+            and (m.split(".")[0] in ("jax", "flax", "jaxlib", "optax",
+                                     "occdepth_tpu")))
+        assert not jax_side, jax_side
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+
+
+def test_trainer_needs_a_device_choice_without_cuda(tmp_path, monkeypatch):
+    """device=None means CUDA: without a GPU the Trainer raises rather
+    than fall back to the CPU."""
+    from occdepth_tpu_torch.training import Trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(tiny_kitti_config(), str(tmp_path))
