@@ -28,11 +28,26 @@ Phases, one line each:
      updated parameters, within the fp32-noise-aware bounds of
      tests/test_torch_port_train_step.py;
  10. the training path: the Trainer at the flagship config in bf16 with
-     dw_conv_grad=pallas takes 3 optimizer steps at batch 1 on 2 cycled
-     labelled synthetic batches (counters set to 0 just before); every
-     loss term finite, parameters changed, K4 launched once per stride-1
-     depthwise conv of view 0 per step, K1 and K2 4 times per step;
-     metrics.jsonl written; a second Trainer resumes at step 3.
+     dw_conv_grad=pallas fits 3 optimizer steps at batch 1 on a 2-sample
+     labelled synthetic dataset, validating on a 1-sample one at each
+     epoch end (counters set to 0 just before); every loss term finite,
+     parameters changed, K4 launched once per stride-1 depthwise conv of
+     view 0 per step, K1 and K2 4 times per step and per validation
+     forward; val/mIoU logged, best_val_mIoU kept; metrics.jsonl written;
+     a second Trainer resumes at step 3;
+ 11. K3 conv3x3 vs its plain version at the flagship decoder's ten 3x3
+     conv shapes (batch 2 images), in bf16 and fp32 (TF32 off), with the
+     device times (CUDA-graph replays) of K3, the plain version and
+     cuDNN's conv (F.conv2d), and the bound of each conv;
+ 12. the eval path: a synthetic SemanticKITTI tree (make_kitti_tree, 3 val
+     frames) and a reference-schema .ckpt of seeded random weights;
+     `evaluate` at batch 2 (a ragged last batch) in fp32 (TF32 off) with
+     decoder_conv_impl=xla and =pallas (counters set to 0 just before
+     each): K3 launched 20 times under pallas and never under xla, the
+     confusion counts of the two within 1e-5 of the counted voxels, the
+     padding counting 3 frames; then bf16 ms/frame of xla and pallas in
+     turns, and the eval CLI as a subprocess, which must print the
+     metric table.
 Then a JSON line of per-kernel results, the `nvidia-smi` name/power-limit
 line, and as the last line {"ok": true, "device": {...}}.  Any failure
 raises and exits non-zero; there is no CPU fallback.
@@ -40,12 +55,14 @@ raises and exits non-zero; there is no CPU fallback.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import math
 import os
 import shutil
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 
@@ -62,6 +79,11 @@ K2_GRAD_BF16_RTOL = 2 ** -7  # one bf16 rounding of the returned gradient
 LOSS_RTOL = 1e-4  # tiny train step, CUDA vs CPU loss terms
 GRAD_RTOL, NOISE_MULT, N_PERTURB, FLIP_MULT = 1e-3, 4.0, 2, 2.0
 TRAIN_STEPS = 3
+K3_BATCH = 2  # one eval frame: 2 views through the backbone at once
+K3_RTOL = {"float32": 1e-4,  # x max|ref|: fp32 sums of 9*Ci terms reordered
+           "bfloat16": 2 ** -7}  # one bf16 rounding of the output
+EVAL_FRAMES, EVAL_BATCH = 3, 2
+CONF_FLIP_FRAC = 1e-5  # of counted voxels: argmax flips xla vs pallas, fp32
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
@@ -334,24 +356,41 @@ def phase_tiny_train(dev) -> dict:
     return {"loss_rel_err": loss_err}
 
 
-def phase_train(dev, smi: str) -> dict:
-    """10. The training path: the flagship Trainer takes 3 steps."""
-    import numpy as np
-    import torch
-
-    from occdepth_tpu_torch.config import default_config_path, load_config
-    from occdepth_tpu_torch.data.batch import make_synthetic_batch
+def kernel_counters() -> dict:
+    """name -> the wrapper whose `.launches` counts that kernel."""
+    from occdepth_tpu_torch.ops.conv2d_shift import conv3x3
     from occdepth_tpu_torch.ops.crp_matmul import crp_relation_matmul
     from occdepth_tpu_torch.ops.dw_conv import dw_filter_grad
     from occdepth_tpu_torch.ops.stereo_fuse import stereo_cosine_fuse
+
+    return {"stereo_cosine_fuse": stereo_cosine_fuse,
+            "crp_relation_matmul": crp_relation_matmul,
+            "conv3x3": conv3x3, "dw_filter_grad": dw_filter_grad}
+
+
+def reset_counts() -> None:
+    for fn in kernel_counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in kernel_counters().items()}
+
+
+def phase_train(dev, smi: str) -> dict:
+    """10. The training path: the flagship Trainer fits 3 steps."""
+    import torch
+
+    from occdepth_tpu_torch.config import default_config_path, load_config
+    from occdepth_tpu_torch.testing import synthetic_dataset
     from occdepth_tpu_torch.training import Trainer
 
     cfg = load_config(default_config_path(FLAGSHIP), overrides={
         "compute_dtype": "bfloat16", "dw_conv_grad": "pallas",
         "log_every_n_steps": 1})
     t0 = time.perf_counter()
-    batches = [make_synthetic_batch(cfg, batch_size=1, seed=s,
-                                    with_labels=True) for s in (0, 1)]
+    train_ds = synthetic_dataset(cfg, 2, seed=0)
+    val_ds = synthetic_dataset(cfg, 1, seed=1)
     data_s = time.perf_counter() - t0
     logdir = tempfile.mkdtemp(prefix="occdepth_train_")
     try:
@@ -362,19 +401,14 @@ def phase_train(dev, smi: str) -> dict:
                    if getattr(m, "fast_grad", False))
         before = {n: p.detach().clone()
                   for n, p in trainer.model.named_parameters()}
-        cycled = [batches[i % 2] for i in range(TRAIN_STEPS)]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        stereo_cosine_fuse.launches = 0
-        crp_relation_matmul.launches = 0
-        dw_filter_grad.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
-        trainer.fit(cycled, max_steps=TRAIN_STEPS)
+        trainer.fit(train_ds, val_ds, max_steps=TRAIN_STEPS)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-        launches = {"stereo_cosine_fuse": stereo_cosine_fuse.launches,
-                    "crp_relation_matmul": crp_relation_matmul.launches,
-                    "dw_filter_grad": dw_filter_grad.launches}
+        launches = read_counts()
         peak = torch.cuda.max_memory_allocated()
         step_ms = trainer.step_ms
         ms_step = statistics.mean(step_ms[1:])
@@ -389,6 +423,9 @@ def phase_train(dev, smi: str) -> dict:
         with open(trainer.metrics_logger.path) as f:
             records = [json.loads(line) for line in f]
         train_recs = [r for r in records if "train/loss" in r]
+        val_steps = [r["step"] for r in records if "val/mIoU" in r]
+        # 2 samples at batch 1: epochs end at steps 2 and 3 (max_steps)
+        n_val_forwards = len(val_steps) * len(val_ds)
         last = train_recs[-1] if train_recs else {}
         terms = sorted(k for k in last if k.startswith("train/loss"))
         log("train", steps=trainer.step, data_s=f"{data_s:.2f}",
@@ -400,6 +437,8 @@ def phase_train(dev, smi: str) -> dict:
             k1_launches=launches["stereo_cosine_fuse"],
             k2_launches=launches["crp_relation_matmul"],
             k4_launches=launches["dw_filter_grad"],
+            k3_launches=launches["conv3x3"], val_steps=val_steps,
+            best_val_mIoU=trainer.ckpt.best.get("val/mIoU"),
             **{k.replace("train/", ""): f"{last[k]:.5f}" for k in terms})
         check(trainer.step == TRAIN_STEPS, f"trainer at step {trainer.step}")
         expected = {"train/loss", "train/loss_relation_ce_super",
@@ -416,12 +455,18 @@ def phase_train(dev, smi: str) -> dict:
         check(n_dw == 22, f"{n_dw} stride-1 depthwise convs (expected 22)")
         check(launches["dw_filter_grad"] == n_dw * TRAIN_STEPS,
               f"K4 launches {launches['dw_filter_grad']}")
+        forwards = TRAIN_STEPS + n_val_forwards
         check(launches["stereo_cosine_fuse"]
-              == len(cfg.project_res) * TRAIN_STEPS,
+              == len(cfg.project_res) * forwards,
               f"K1 launches {launches['stereo_cosine_fuse']}")
-        check(launches["crp_relation_matmul"] == cfg.n_relations * TRAIN_STEPS,
+        check(launches["crp_relation_matmul"] == cfg.n_relations * forwards,
               f"K2 launches {launches['crp_relation_matmul']}")
+        check(launches["conv3x3"] == 0, "training ran K3")
         check(any("train/mIoU" in r for r in records), "no train/mIoU record")
+        check(val_steps == [2, TRAIN_STEPS], f"val/mIoU records {val_steps}")
+        check(trainer.ckpt.has("best_val_mIoU")
+              and trainer.ckpt.has("best_val_IoU"),
+              "no best-by-metric checkpoint")
         del trainer
         resumed = Trainer(cfg, logdir)
         log("resume", step=resumed.step)
@@ -434,6 +479,194 @@ def phase_train(dev, smi: str) -> dict:
         shutil.rmtree(logdir, ignore_errors=True)
     return {"launches": launches, "ms_per_step": ms_step,
             "peak_gib": peak / 2**30}
+
+
+def flagship_k3_shapes(dev) -> list:
+    """(Ci, H, W, Co) of the flagship decoder's ten 3x3 convs, read from
+    the 2D UNet by forward hooks (in forward order)."""
+    import torch
+
+    from occdepth_tpu_torch.models.unet2d import Conv3x3Fast, UNet2D
+
+    net = UNet2D("tf_efficientnet_b3_ns", 32, 1).to(dev).eval()
+    shapes = []
+    for m in net.modules():
+        if isinstance(m, Conv3x3Fast):
+            m.register_forward_hook(lambda mod, inp, out: shapes.append(
+                (*inp[0].shape[1:], mod.out_channels)))
+    with torch.inference_mode():
+        net(torch.zeros(1, 3, 370, 1220, device=dev, dtype=torch.bfloat16))
+    del net
+    return shapes
+
+
+def phase_k3(dev) -> dict:
+    """11. K3 vs its plain version at the flagship decoder's ten shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from occdepth_tpu_torch.ops.conv2d_shift import conv3x3, conv3x3_reference
+
+    shapes = flagship_k3_shapes(dev)
+    check(len(shapes) == 10, f"{len(shapes)} decoder 3x3 convs (expected 10)")
+    g = torch.Generator(device=dev).manual_seed(11)
+    res = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+        tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+               "bound_ms": 0.0, "max_abs_err": 0.0, "max_rel_err": 0.0}
+        kinds = set()
+        for Ci, H, W, Co in shapes:
+            x = torch.randn(K3_BATCH, Ci, H, W, device=dev,
+                            generator=g).to(dtype)
+            w = (torch.randn(Co, Ci, 3, 3, device=dev, generator=g)
+                 / (9 * Ci) ** 0.5).to(dtype)
+            b = 0.1 * torch.randn(Co, device=dev, generator=g)
+            # the plain version in fp32 on the same (bf16-rounded) inputs
+            ref = conv3x3_reference(x.float(), w.float(), b)
+            out = conv3x3(x, w, b)
+            torch.cuda.synchronize()
+            scale = ref.abs().max().item()
+            err = (out.float() - ref).abs().max().item()
+            tol = K3_RTOL[name] * scale
+            check(err <= tol, f"K3 {name} ({Ci},{H},{W})->{Co} error "
+                              f"{err} > {tol}")
+            del ref, out
+            bl = b.to(dtype)
+            ms = graph_ms(lambda: conv3x3(x, w, b), reps=10)
+            plain = graph_ms(lambda: conv3x3_reference(x, w, b), reps=10)
+            lib = graph_ms(lambda: F.conv2d(x, w, bl, 1, 1), reps=10)
+            n_bytes = ((x.numel() + w.numel() + K3_BATCH * Co * H * W)
+                       * x.element_size() + Co * 4)
+            b_ms, kind = bound_ms(n_bytes, 2 * K3_BATCH * H * W * 9 * Ci * Co,
+                                  peak)
+            kinds.add(kind)
+            log("k3", dtype=name, shape=f"({K3_BATCH},{Ci},{H},{W})->{Co}",
+                max_abs_err=err, tol=f"{tol:.3e}", ms=f"{ms:.4f}",
+                plain_ms=f"{plain:.4f}", library_ms=f"{lib:.4f}",
+                bound_ms=f"{b_ms:.4f}", bound_by=kind)
+            tot["ms"] += ms
+            tot["plain_ms"] += plain
+            tot["library_ms"] += lib
+            tot["bound_ms"] += b_ms
+            tot["max_abs_err"] = max(tot["max_abs_err"], err)
+            tot["max_rel_err"] = max(tot["max_rel_err"], err / scale)
+            del x, w
+        tot["bound_by"] = "bytes" if kinds == {"bytes"} else "operations"
+        log("k3_total", dtype=name, convs=len(shapes),
+            **{k: (f"{v:.4f}" if isinstance(v, float) and "err" not in k
+                   else v) for k, v in tot.items()})
+        res[name] = tot
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_eval(dev, smi: str) -> dict:
+    """12. The eval path on a synthetic disk tree, xla vs pallas."""
+    import numpy as np
+    import torch
+
+    from occdepth_tpu_torch.config import default_config_path, load_config
+    from occdepth_tpu_torch.models import OccDepthModel
+    from occdepth_tpu_torch.scripts.eval import evaluate
+    from occdepth_tpu_torch.testing import make_kitti_tree, randomize_weights
+
+    base = tempfile.mkdtemp(prefix="occdepth_eval_")
+    try:
+        t0 = time.perf_counter()
+        make_kitti_tree(base, n_frames=EVAL_FRAMES)
+        tree_s = time.perf_counter() - t0
+        paths = {"data_root": os.path.join(base, "kitti"),
+                 "data_preprocess_root": os.path.join(base, "pre"),
+                 "data_stereo_depth_root": os.path.join(base, "stereo_depth"),
+                 "batch_size_per_gpu": EVAL_BATCH,
+                 "logdir": os.path.join(base, "logdir")}
+        cfg = load_config(default_config_path(FLAGSHIP), overrides=dict(
+            paths, compute_dtype="float32"))
+        ckpt = os.path.join(base, "ref.ckpt")
+        sd = randomize_weights(OccDepthModel(cfg), seed=0).state_dict()
+        torch.save({"state_dict": {"model." + k: v for k, v in sd.items()}},
+                   ckpt)
+        del sd
+
+        runs, launches = {}, {}
+        for impl in ("xla", "pallas"):
+            reset_counts()
+            stats = evaluate(dataclasses.replace(cfg, decoder_conv_impl=impl),
+                             torch_ckpt=ckpt)
+            torch.cuda.synchronize()
+            launches[impl] = read_counts()
+            runs[impl] = stats
+            log("eval_fp32", impl=impl, frames=stats["n_frames"],
+                mIoU=f"{stats['iou_ssc_mean']:.6f}", IoU=f"{stats['iou']:.6f}",
+                loss=f"{stats['losses']['loss']:.5f}",
+                **{f"{k}_launches": v for k, v in launches[impl].items()})
+        n_batches = -(-EVAL_FRAMES // EVAL_BATCH)
+        counted = int(runs["pallas"]["conf"].sum())
+        flips = int(np.abs(runs["pallas"]["conf"].astype(np.int64)
+                           - runs["xla"]["conf"]).sum()) // 2
+        log("eval_xla_vs_pallas", counted_voxels=counted, conf_diff=flips,
+            bound=int(CONF_FLIP_FRAC * counted),
+            completion_xla=runs["xla"]["completion"].tolist(),
+            completion_pallas=runs["pallas"]["completion"].tolist())
+        check(launches["pallas"]["conv3x3"] == 10 * n_batches,
+              f"K3 launched {launches['pallas']['conv3x3']} times under pallas")
+        check(launches["xla"]["conv3x3"] == 0, "K3 launched under xla")
+        for impl, st in runs.items():
+            check(st["n_frames"] == EVAL_FRAMES,
+                  f"{impl}: {st['n_frames']} frames counted")
+            check(int(st["conf"].sum()) == EVAL_FRAMES
+                  * math.prod(cfg.full_scene_size),
+                  f"{impl}: {int(st['conf'].sum())} voxels counted")
+            vals = [st["precision"], st["recall"], st["iou"],
+                    st["iou_ssc_mean"], *st["iou_ssc"].tolist(),
+                    *st["losses"].values()]
+            check(all(math.isfinite(v) for v in vals),
+                  f"{impl}: a stat is not finite")
+        check(flips <= CONF_FLIP_FRAC * counted,
+              f"pallas vs xla confusion differs in {flips} voxels")
+
+        # bf16 eval device time, in turns
+        times = {"xla": [], "pallas": []}
+        peaks = {"xla": [], "pallas": []}
+        for impl in ("xla", "pallas", "pallas", "xla"):
+            torch.cuda.reset_peak_memory_stats()
+            stats = evaluate(dataclasses.replace(
+                cfg, decoder_conv_impl=impl, compute_dtype="bfloat16"),
+                torch_ckpt=ckpt)
+            times[impl].append(stats["ms_per_frame"])
+            peaks[impl].append(torch.cuda.max_memory_allocated() / 2**30)
+        log("eval_bf16", gpu=repr(smi),
+            ms_per_frame_xla=",".join(f"{t:.2f}" for t in times["xla"]),
+            ms_per_frame_pallas=",".join(f"{t:.2f}" for t in times["pallas"]),
+            peak_gib_xla=f"{max(peaks['xla']):.3f}",
+            peak_gib_pallas=f"{max(peaks['pallas']):.3f}")
+
+        # the eval CLI, as a user runs it
+        cmd = [sys.executable, "-m", "occdepth_tpu_torch.scripts.eval",
+               "--config", default_config_path(FLAGSHIP), "--torch-ckpt", ckpt,
+               "decoder_conv_impl=pallas", "compute_dtype=bfloat16",
+               *(f"{k}={v}" for k, v in paths.items())]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=600,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        cli_s = time.perf_counter() - t0
+        lines = proc.stdout.strip().splitlines()
+        for line in lines:
+            print(f"[eval_cli] {line}", flush=True)
+        check(proc.returncode == 0,
+              f"eval CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+        check("test======" in lines and any(l.startswith("mIoU=")
+                                             for l in lines),
+              "the eval CLI printed no metric table")
+        check("WARNING" not in proc.stdout, "the eval CLI missed keys")
+        log("eval_cli", seconds=f"{cli_s:.1f}", tree_s=f"{tree_s:.1f}")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    return {"launches": launches["pallas"], "times": times, "peaks": peaks,
+            "flips": flips, "counted": counted}
 
 
 def main() -> None:
@@ -449,7 +682,6 @@ def main() -> None:
         crp_relation_matmul,
         crp_relation_matmul_reference,
     )
-    from occdepth_tpu_torch.ops.dw_conv import dw_filter_grad
     from occdepth_tpu_torch.ops.stereo_fuse import (
         stereo_cosine_fuse,
         stereo_cosine_fuse_reference,
@@ -548,9 +780,7 @@ def main() -> None:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    stereo_cosine_fuse.launches = 0
-    crp_relation_matmul.launches = 0
-    dw_filter_grad.launches = 0
+    reset_counts()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
@@ -559,9 +789,7 @@ def main() -> None:
     end.record()
     end.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = {"stereo_cosine_fuse": stereo_cosine_fuse.launches,
-                "crp_relation_matmul": crp_relation_matmul.launches,
-                "dw_filter_grad": dw_filter_grad.launches}
+    launches = read_counts()
     dispatches = -(-N_FRAMES // BATCH)
     ms_frame = start.elapsed_time(end) / N_FRAMES
     peak = torch.cuda.max_memory_allocated()
@@ -585,17 +813,21 @@ def main() -> None:
     check(launches["crp_relation_matmul"] == dispatches * cfg.n_relations,
           f"K2 launches {launches['crp_relation_matmul']}")
     check(launches["dw_filter_grad"] == 0, "serving ran a backward")
+    check(launches["conv3x3"] == 0, "serving at decoder_conv_impl=auto ran K3")
 
     # ---- 7-10. K4, autograd through K1/K2, tiny and flagship training ----
     k4 = phase_k4(dev)
     phase_autograd(dev)
     phase_tiny_train(dev)
     train = phase_train(dev, smi)
+    # ---- 11-12. K3 and the eval path ----
+    k3 = phase_k3(dev)
+    evaluation = phase_eval(dev, smi)
 
     def by_path(name):
-        serve_n, train_n = launches[name], train["launches"][name]
-        return {"launches": serve_n + train_n,
-                "launches_by_path": {"serve": serve_n, "train": train_n}}
+        paths = {"serve": launches[name], "train": train["launches"][name],
+                 "eval": evaluation["launches"][name]}
+        return {"launches": sum(paths.values()), "launches_by_path": paths}
 
     bf16 = k2[torch.bfloat16]
     # bytes each kernel must move at the shapes timed above
@@ -629,6 +861,19 @@ def main() -> None:
          "library_ms": k4["library_ms"],
          "timed": f"sum over the {k4['n_convs']} stride-1 depthwise convs "
                   "of one flagship view, bf16, batch 1"},
+        {"name": "conv3x3", "route": "cuda",
+         "source": "occdepth_tpu_torch/csrc/conv3x3.cu",
+         "replaces": "occdepth_tpu/ops/conv2d_shift.py:102, "
+                     "occdepth_tpu/ops/conv2d_shift.py:251",
+         **by_path("conv3x3"),
+         "max_abs_err": max(t["max_abs_err"] for t in k3.values()),
+         "ms": k3["bfloat16"]["ms"], "plain_ms": k3["bfloat16"]["plain_ms"],
+         "bound_ms": k3["bfloat16"]["bound_ms"],
+         "bound_by": k3["bfloat16"]["bound_by"],
+         "library_ms": k3["bfloat16"]["library_ms"],
+         "fp32": {k: v for k, v in k3["float32"].items()},
+         "timed": "sum over the flagship decoder's ten 3x3 convs at batch 2 "
+                  "images (one eval frame), bf16; fp32 (TF32 off) beside"},
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -7,9 +7,11 @@ same YAML files load into both.  PyYAML is imported only inside
 `load_config`.
 
 Keys that select TPU-only code paths (`use_pallas`, `unroll_gathers`,
-`decoder_conv_impl`, `dw_conv_grad`, `layout_pin`, `view_vmap`, `remat_*`,
-`sfa_bwd_stop_scales`, `stage_barriers`, `eval_unroll`, `mesh_*`) are
-accepted and ignored: on CUDA the port always runs its own kernels.
+`layout_pin`, `view_vmap`, `remat_*`, `sfa_bwd_stop_scales`,
+`stage_barriers`, `eval_unroll`, `mesh_*`) are accepted and ignored: on
+CUDA the port always runs K1 and K2.  `dw_conv_grad` (K4 in the encoder
+backward) and `decoder_conv_impl` (K3 in the decoder) select paths as in
+the JAX package.
 """
 from __future__ import annotations
 
@@ -128,7 +130,8 @@ class OccDepthConfig:
     compute_dtype: str = "bfloat16"
     param_dtype: str = "float32"
 
-    # JAX-package knobs, accepted and ignored by the port
+    # JAX-package knobs; the port reads dw_conv_grad and
+    # decoder_conv_impl and ignores the rest
     use_pallas: bool = False
     unroll_gathers: bool = True
     decoder_conv_impl: str = "auto"
@@ -262,6 +265,19 @@ def load_config(path: str,
         for key, value in raw.items() if key in fields
     }
     return OccDepthConfig(**kwargs)
+
+
+def parse_overrides(args) -> Dict[str, Any]:
+    """Parse `key=value` CLI overrides; each value is read as YAML."""
+    import yaml
+
+    out: Dict[str, Any] = {}
+    for arg in args:
+        if "=" not in arg:
+            raise ValueError(f"override must be key=value, got {arg!r}")
+        key, value = arg.split("=", 1)
+        out[key] = yaml.safe_load(value)
+    return out
 
 
 def default_config_path(name: str) -> str:

@@ -58,7 +58,8 @@ class OccDepthModel(nn.Module):
         self.cfg = cfg
         self.compute_dtype = _DTYPES[cfg.compute_dtype]
         self.net_rgb = UNet2D(cfg.backbone_2d_name, cfg.feature_2d_oc,
-                              cfg.return_up_feats, cfg.dw_conv_grad)
+                              cfg.return_up_feats, cfg.dw_conv_grad,
+                              cfg.decoder_conv_impl)
         self.net_3d_decoder = UNet3DKitti(
             cfg.n_classes, cfg.feature, cfg.full_scene_size,
             project_scale=cfg.project_scale,

@@ -2,9 +2,10 @@
 
 Counterpart of `occdepth_tpu/models/unet2d.py`, with the reference's
 module names (encoder.original_model, decoder.conv2, decoder.up{s}._net,
-decoder.resize_output_1_{s}).  The 3x3 decoder convs are stock
-convolutions: the JAX package's `decoder_conv_impl=auto` resolves to its
-stock conv as well.
+decoder.resize_output_1_{s}).  The decoder's 3x3 convs route by
+`decoder_conv_impl` as the JAX package's `Conv3x3Fast` does: `xla` and
+`auto` take the stock convolution, `shift` the plain version of K3 and
+`pallas` K3 itself (`ops/conv2d_shift.py`), with the same parameters.
 """
 from __future__ import annotations
 
@@ -15,18 +16,42 @@ import torch.nn as nn
 
 from occdepth_tpu_torch.models.efficientnet import EfficientNet, variant_channels
 from occdepth_tpu_torch.models.layers import Conv2d, batch_norm2d
+from occdepth_tpu_torch.ops.conv2d_shift import (
+    conv3x3,
+    conv3x3_reference,
+    resolve_conv_impl,
+)
 from occdepth_tpu_torch.ops.resize import resize_bilinear
+
+
+class Conv3x3Fast(Conv2d):
+    """3x3 stride-1 padding-1 conv with the parameters of `Conv2d`,
+    computed by the path `impl` names (counterpart of the JAX package's
+    `Conv3x3Fast`): the stock conv, or K3's plain version or kernel, which
+    add the float32 bias to float32 sums."""
+
+    def __init__(self, cin: int, cout: int, impl: str = "xla"):
+        super().__init__(cin, cout, 3, 1, 1)
+        self.impl = impl
+
+    def forward(self, x):
+        impl = resolve_conv_impl(self.impl, self.training)
+        if impl == "shift":
+            return conv3x3_reference(x, self.weight, self.bias)
+        if impl == "pallas":
+            return conv3x3(x, self.weight.to(x.dtype), self.bias)
+        return super().forward(x)
 
 
 class UpSampleBN(nn.Module):
     """Upsample-to-skip + concat + 2x (conv3x3, BN, LeakyReLU)."""
 
-    def __init__(self, skip_input: int, out_f: int):
+    def __init__(self, skip_input: int, out_f: int, conv_impl: str = "xla"):
         super().__init__()
         self._net = nn.Sequential(
-            Conv2d(skip_input, out_f, 3, 1, 1), batch_norm2d(out_f),
+            Conv3x3Fast(skip_input, out_f, conv_impl), batch_norm2d(out_f),
             nn.LeakyReLU(),
-            Conv2d(out_f, out_f, 3, 1, 1), batch_norm2d(out_f),
+            Conv3x3Fast(out_f, out_f, conv_impl), batch_norm2d(out_f),
             nn.LeakyReLU(),
         )
 
@@ -50,7 +75,7 @@ class DecoderBN(nn.Module):
     size absorbs it."""
 
     def __init__(self, variant: str, out_feature: int,
-                 return_up_feats: int = 1):
+                 return_up_feats: int = 1, conv_impl: str = "xla"):
         super().__init__()
         cfg = variant_channels(variant)
         mc = [3, cfg["stages"][0], cfg["stages"][1], cfg["stages"][2],
@@ -63,7 +88,8 @@ class DecoderBN(nn.Module):
         cin = f
         for s in self.scales:
             cout = f * s // 32  # f/2 at 1_16 ... f/32 at 1_1
-            setattr(self, f"up{s}", UpSampleBN(cin + skips[s], cout))
+            setattr(self, f"up{s}", UpSampleBN(cin + skips[s], cout,
+                                                   conv_impl))
             setattr(self, f"resize_output_1_{s}",
                     Conv2d(cout, out_feature, 1))
             cin = cout
@@ -84,11 +110,11 @@ class UNet2D(nn.Module):
 
     def __init__(self, backbone_2d_name: str = "tf_efficientnet_b3_ns",
                  out_feature: int = 32, return_up_feats: int = 1,
-                 dw_conv_grad: str = "xla"):
+                 dw_conv_grad: str = "xla", conv_impl: str = "xla"):
         super().__init__()
         self.encoder = Encoder(backbone_2d_name, dw_conv_grad)
         self.decoder = DecoderBN(backbone_2d_name, out_feature,
-                                 return_up_feats)
+                                 return_up_feats, conv_impl)
 
     def forward(self, img) -> Dict[str, torch.Tensor]:
         return self.decoder(self.encoder(img))

@@ -48,6 +48,7 @@ _SIGNATURES = {
     "occ_dw_filter_grad": (
         [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int] + [_I64] * 14 + [_P]
     ),
+    "occ_conv3x3": [_P, _P, _P, _P, ctypes.c_int] + [_I64] * 9 + [_P],
 }
 
 

@@ -39,6 +39,7 @@ FLAGSHIP = "semantic_kitti/multicam_flospdepth_crp_stereodepth_cascadecls"
 
 # kernel-name patterns -> kind, first match wins
 KINDS = (
+    ("K3 conv3x3", r"conv3x3"),
     ("K4 dw_filter_grad", r"dw_filter_grad"),
     ("K1 stereo_cosine_fuse", r"stereo_cosine_fuse"),
     ("K2 crp_relation_matmul", r"crp_relation_matmul"),

@@ -35,21 +35,28 @@ class ServingPipeline:
 
     Args:
         cfg: model config (image size, views, ... must match the rig).
-        model: an `OccDepthModel` holding its weights, on the serving
-            device; the pipeline puts it in eval mode.
+        model: an `OccDepthModel` holding its weights; the pipeline moves
+            it to the serving device and puts it in eval mode.
         calib_batch: batch dict holding the rig's non-image tensors
             (projected_pix, fov_mask, cam_k, T_velo_2_cam, ida_mats) with a
             leading batch dim; row 0 is broadcast to the serving batch.
         batch_size: frames per dispatch.
         max_in_flight: dispatched-but-unread batches to keep on the device.
+        device: None means CUDA, and raises without a GPU; `"cpu"` is the
+            only way to serve on the CPU.
     """
 
     def __init__(self, cfg: OccDepthConfig, model: OccDepthModel,
                  calib_batch: Dict[str, np.ndarray], batch_size: int = 8,
-                 max_in_flight: int = 2):
+                 max_in_flight: int = 2, device=None):
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError("ServingPipeline: no CUDA device (pass "
+                                   "device='cpu' to serve on the CPU)")
+            device = "cuda"
         self.cfg = cfg
-        self.model = model.eval()
-        self.device = next(model.parameters()).device
+        self.device = torch.device(device)
+        self.model = model.to(self.device).eval()
         self.batch_size = int(batch_size)
         self.max_in_flight = max(1, int(max_in_flight))
         B = self.batch_size

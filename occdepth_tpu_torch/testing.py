@@ -1,14 +1,18 @@
-"""Reduced-size configs, seeded random weights and the fp32-noise-aware
-comparison helpers for tests and smoke runs."""
+"""Reduced-size configs, seeded random weights, a synthetic on-disk
+SemanticKITTI tree and the fp32-noise-aware comparison helpers for tests
+and smoke runs."""
 from __future__ import annotations
 
 import copy
 import math
+import os
 
+import numpy as np
 import torch
 import torch.nn as nn
 
 from occdepth_tpu_torch.config import FlospDepthConfig, OccDepthConfig
+from occdepth_tpu_torch.data.kitti_io import pack_bits
 
 TINY_IMG_KITTI = (64, 96)
 
@@ -46,6 +50,17 @@ def tiny_kitti_config(**overrides) -> OccDepthConfig:
     )
     base.update(overrides)
     return OccDepthConfig(**base)
+
+
+def synthetic_dataset(cfg: OccDepthConfig, n: int, seed: int = 0,
+                      with_labels: bool = True) -> list:
+    """The n samples of `make_synthetic_batch(cfg, n, seed, with_labels)`
+    as a list of per-sample dicts: a map-style dataset for `Loader` and
+    `Trainer.fit`."""
+    from occdepth_tpu_torch.data.batch import make_synthetic_batch
+
+    batch = make_synthetic_batch(cfg, n, seed, with_labels)
+    return [{k: v[i] for k, v in batch.items()} for i in range(n)]
 
 
 @torch.no_grad()
@@ -121,3 +136,80 @@ def count_flips(a: dict, b: dict, threshold: float) -> int:
     named tensors of `a` (e.g. AdamW first-step updates of opposite sign)."""
     return sum(int(((a[n].detach().cpu() - torch.as_tensor(b[n]).cpu()
                      ).abs() > threshold).sum()) for n in a)
+
+
+def make_kitti_tree(base: str, n_frames: int = 2,
+                    hw: tuple = (370, 1220)) -> None:
+    """Build a synthetic full-resolution SemanticKITTI tree under `base`.
+
+    A copy of `occdepth_tpu.testing.make_kitti_tree` (the same files from
+    the same RandomState draws): 370x1220 stereo pairs, 256x256x32 voxel
+    grids, preprocessed labels and stereo-depth maps.  Sequences 00 and 08
+    (the val split) get `n_frames` frames each; the other train-split
+    sequences (01-07, 09, 10) are symlinks of 00, so one epoch is
+    10*n_frames train samples.  Writes `{base}/kitti`, `{base}/pre` and
+    `{base}/stereo_depth`: data_root, data_preprocess_root and
+    data_stereo_depth_root of a config.
+    """
+    from PIL import Image
+
+    rng = np.random.RandomState(3)
+    root = os.path.join(base, "kitti")
+    pre = os.path.join(base, "pre")
+    depth_root = os.path.join(base, "stereo_depth")
+    H, W = hw
+    frames = [f"{5 * i:06d}" for i in range(n_frames)]
+
+    for seq_name in ("00", "08"):
+        seq = os.path.join(root, "dataset", "sequences", seq_name)
+        for d in ("voxels", "image_2", "image_3"):
+            os.makedirs(os.path.join(seq, d), exist_ok=True)
+        labels = os.path.join(pre, "labels", seq_name)
+        os.makedirs(labels, exist_ok=True)
+        ddir = os.path.join(
+            depth_root, "dataset", "sequences", seq_name, "depth"
+        )
+        os.makedirs(ddir, exist_ok=True)
+        with open(os.path.join(seq, "calib.txt"), "w") as f:
+            P2 = "7.07 0 60.18 0 0 7.07 18.31 0 0 0 1 0"
+            P3 = "7.07 0 60.18 -3.8 0 7.07 18.31 0 0 0 1 0"
+            Tr = "0 -1 0 0 0 0 -1 0 1 0 0 -0.27"
+            f.write(f"P2: {P2}\nP3: {P3}\nTr: {Tr}\n\n")
+        for frame in frames:
+            open(os.path.join(seq, "voxels", f"{frame}.bin"), "wb").write(
+                pack_bits(
+                    (rng.rand(256 * 256 * 32) > 0.5).astype(np.uint8)
+                ).tobytes()
+            )
+            open(
+                os.path.join(seq, "voxels", f"{frame}.occluded"), "wb"
+            ).write(
+                pack_bits(
+                    (rng.rand(256 * 256 * 32) > 0.7).astype(np.uint8)
+                ).tobytes()
+            )
+            img = (rng.rand(H + 6, W + 20, 3) * 255).astype(np.uint8)
+            Image.fromarray(img).save(
+                os.path.join(seq, "image_2", f"{frame}.png"))
+            Image.fromarray(img).save(
+                os.path.join(seq, "image_3", f"{frame}.png"))
+            t11 = rng.choice(
+                [0, 1, 5, 255], size=(256, 256, 32)
+            ).astype(np.uint8)
+            np.save(os.path.join(labels, f"{frame}_1_1.npy"), t11)
+            np.save(
+                os.path.join(labels, f"{frame}_1_8.npy"), t11[::8, ::8, ::8]
+            )
+            depth = (rng.rand(H, W) * 256 * 30).astype(np.uint16)
+            Image.fromarray(depth).save(os.path.join(ddir, f"{frame}.png"))
+
+    # train split is sequences 00-07, 09, 10 — symlink them to 00
+    for seq_name in ("01", "02", "03", "04", "05", "06", "07", "09", "10"):
+        for parent in (
+            os.path.join(root, "dataset", "sequences"),
+            os.path.join(pre, "labels"),
+            os.path.join(depth_root, "dataset", "sequences"),
+        ):
+            dst = os.path.join(parent, seq_name)
+            if not os.path.exists(dst):
+                os.symlink("00", dst)

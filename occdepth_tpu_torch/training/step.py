@@ -3,14 +3,15 @@
 Counterpart of `occdepth_tpu/training/step.py`: `compute_losses` gathers
 every loss term the config enables; `train_step` runs forward, losses and
 backward per microbatch, clips, applies one AdamW update and returns the
-logs with the step's confusion counts.
+logs with the step's confusion counts; `eval_step` is the validation step
+(forward, test-time losses, confusion counts).
 
 Numerics follow the port's explicit-cast rule (`models/layers.py`): no
 `torch.autocast` and no gradient scaler, as the JAX package has none.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -138,3 +139,27 @@ def train_step(
         group["lr"] = lr
     optimizer.step()
     return {k: v / K for k, v in logs_sum.items()}, completion, conf
+
+
+def eval_step(
+    cfg: OccDepthConfig,
+    model: nn.Module,
+    batch: Dict[str, torch.Tensor],
+) -> Tuple[Dict[str, torch.Tensor], torch.Tensor, torch.Tensor]:
+    """Validation step: eval-mode forward, the test-time losses and the
+    confusion counts, on the device (counterpart of `make_eval_step`).
+
+    An optional batch key `sample_valid` (B,) bool marks padding rows that
+    keep the final val batch at the full batch size; they count nowhere in
+    the confusion counts.  Returns (logs, completion (3,), conf (C, C)).
+    """
+    batch = dict(batch)
+    sample_valid: Optional[torch.Tensor] = batch.pop("sample_valid", None)
+    model.eval()
+    with torch.inference_mode():
+        out = model(batch)
+        _, logs = compute_losses(cfg, out, batch, 0.0, is_test=True)
+        completion, conf = confusion_update(
+            out["ssc_logit"].argmax(dim=-1), batch["target"], cfg.n_classes,
+            sample_valid)
+    return logs, completion, conf

@@ -5,6 +5,9 @@ The port's `state_dict` keys are the reference checkpoint's keys, which
 JAX package's flax variables.  `state_dict_from_jax` is the exact inverse:
 it turns `{"params", "batch_stats"}` (NumPy leaves) back into a
 `state_dict` that loads into `OccDepthModel` with `strict=True`.
+`load_reference_checkpoint` loads a released reference checkpoint (a
+Lightning `.ckpt` or a plain state_dict) into the port natively: its keys
+are the port's keys.
 
 Layout transforms (inverse of the converter's):
     Conv2d   (kh, kw, I, O)        -> (O, I, kh, kw)
@@ -17,6 +20,8 @@ from __future__ import annotations
 
 from collections import OrderedDict
 from typing import Any, Dict, List, Tuple
+
+import torch.nn as nn
 
 import numpy as np
 import torch
@@ -190,3 +195,30 @@ def state_dict_from_jax(variables: Dict[str, Any],
     return OrderedDict(
         (k, torch.from_numpy(np.array(v, order="C"))) for k, v in sd.items()
     )
+
+
+def load_reference_checkpoint(model: nn.Module, path: str) -> List[str]:
+    """Load a reference PyTorch checkpoint into `model` in place.
+
+    Counterpart of `convert_torch.load_torch_checkpoint` /
+    `load_torch_into_state`: `path` holds a Lightning `.ckpt` (weights
+    under `state_dict`, keys maybe prefixed `model.`) or a plain
+    state_dict.  Keys the model does not hold are ignored; keys the model
+    holds and the checkpoint lacks (BatchNorm's `num_batches_tracked`
+    aside, which eval never reads) keep their values and are returned, and
+    a warning line names them as the JAX package prints it.
+    """
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    sd = ckpt.get("state_dict", ckpt)
+    if any(k.startswith("model.") for k in sd):
+        sd = {k[len("model."):]: v for k, v in sd.items()
+              if k.startswith("model.")}
+    own = model.state_dict()
+    missing = [k for k in own if k not in sd
+               and not k.endswith("num_batches_tracked")]
+    model.load_state_dict({k: v for k, v in sd.items() if k in own},
+                          strict=False)
+    if missing:
+        print(f"WARNING: {len(missing)} torch keys not found, e.g. "
+              f"{missing[:5]}")
+    return missing

@@ -1,4 +1,4 @@
-"""Port kernels K1/K2/K4: plain versions vs the JAX Pallas kernels
+"""Port kernels K1/K2/K3/K4: plain versions vs the JAX Pallas kernels
 (interpret mode on the CPU), their autograd, and the CUDA kernels vs the
 plain versions (`cuda` marker, skipped without a card).
 
@@ -10,6 +10,11 @@ import numpy as np
 import pytest
 import torch
 
+from occdepth_tpu_torch.ops.conv2d_shift import (
+    conv3x3,
+    conv3x3_reference,
+    resolve_conv_impl,
+)
 from occdepth_tpu_torch.ops.crp_matmul import (
     crp_relation_matmul,
     crp_relation_matmul_reference,
@@ -259,3 +264,107 @@ def test_kernel_autograd_functions_have_grad_fn(cuda_device):
     assert dw_filter_grad.launches == before + 1
     ref = dw_filter_grad_reference(x.detach(), torch.ones_like(x), 3, 3)
     torch.testing.assert_close(w.grad, ref, rtol=1e-5, atol=1e-5)
+
+
+def _conv_inputs(rng, B, Ci, H, W, Co):
+    x = rng.randn(B, Ci, H, W).astype(np.float32)
+    w = (rng.randn(Co, Ci, 3, 3) / np.sqrt(9 * Ci)).astype(np.float32)
+    b = (0.1 * rng.randn(Co)).astype(np.float32)
+    return x, w, b
+
+
+@pytest.mark.parametrize("shape", [(2, 9, 13, 11, 6), (1, 8, 20, 35, 16)],
+                         ids=["odd", "wide"])
+def test_conv3x3_plain_matches_pallas_interpret(shape):
+    """K3's plain version (NCHW, OIHW) vs the JAX package's Pallas kernel
+    in interpret mode and its shifted-matmul version (NHWC, HWIO), fp32:
+    sums of 9*Ci terms in another order, so 1e-5 * max|ref|."""
+    jnp = pytest.importorskip("jax.numpy")
+    from occdepth_tpu.ops.conv2d_shift import conv3x3_pallas, conv3x3_shift
+
+    B, H, W, Ci, Co = shape
+    x, w, b = _conv_inputs(np.random.RandomState(Ci), B, Ci, H, W, Co)
+    ours = conv3x3(*(torch.from_numpy(a) for a in (x, w, b)))
+    assert ours.shape == (B, Co, H, W) and ours.dtype == torch.float32
+    xh = jnp.asarray(x.transpose(0, 2, 3, 1))
+    wh = jnp.asarray(w.transpose(2, 3, 1, 0))
+    for ref in (conv3x3_pallas(xh, wh, jnp.asarray(b), interpret=True),
+                conv3x3_shift(xh, wh, jnp.asarray(b))):
+        ref = np.asarray(ref).transpose(0, 3, 1, 2)
+        err = np.abs(ours.numpy() - ref).max()
+        assert err <= 1e-5 * np.abs(ref).max(), err
+
+
+def test_conv3x3_cpu_plain_path_and_no_gradient():
+    """On CPU tensors the wrapper runs the plain version and launches
+    nothing; with grad mode on and an input that requires grad it raises,
+    as the JAX package defines no gradient for K3."""
+    x, w, b = (torch.from_numpy(a) for a in _conv_inputs(
+        np.random.RandomState(0), 1, 5, 6, 7, 4))
+    before = conv3x3.launches
+    out = conv3x3(x, w, None)
+    assert conv3x3.launches == before
+    torch.testing.assert_close(
+        out, torch.nn.functional.conv2d(x, w, None, 1, 1), rtol=1e-5,
+        atol=1e-5)
+    wg = w.clone().requires_grad_()
+    with pytest.raises(NotImplementedError, match="decoder_conv_impl=pallas"):
+        conv3x3(x, wg, b)
+    with torch.no_grad():
+        conv3x3(x, wg, b)
+    # bf16 inputs: fp32 sums, fp32 bias, one rounding
+    xb, wb = x.bfloat16(), w.bfloat16()
+    ref = conv3x3_reference(xb.float(), wb.float(), b).bfloat16()
+    assert torch.equal(conv3x3(xb, wb, b), ref)
+
+
+@pytest.mark.parametrize("impl", ["auto", "xla", "shift", "pallas"])
+@pytest.mark.parametrize("train", [False, True])
+def test_resolve_conv_impl_matches_jax(impl, train):
+    from occdepth_tpu.ops.conv2d_shift import resolve_conv_impl as jax_resolve
+
+    assert resolve_conv_impl(impl, train) == jax_resolve(impl, train)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 99, 37, 70, 48), (1, 1672, 5, 77, 768),
+                                   (2, 16, 3, 130, 64), (1, 3, 1, 1, 5)])
+def test_conv3x3_kernel_matches_plain(cuda_device, dtype, shape):
+    """fp32 (TF32 off): sums in another order, 1e-4 * max|ref|; bf16: the
+    plain version in fp32 on the same bf16 inputs, one bf16 rounding of
+    the output apart, 2^-7 * max|ref|."""
+    B, Ci, H, W, Co = shape
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn(B, Ci, H, W, device=cuda_device, generator=g).to(dtype)
+    w = (torch.randn(Co, Ci, 3, 3, device=cuda_device, generator=g)
+         / (9 * Ci) ** 0.5).to(dtype)
+    b = 0.1 * torch.randn(Co, device=cuda_device, generator=g)
+    rtol = 1e-4 if dtype == torch.float32 else 2 ** -7
+    ref = conv3x3_reference(x.float(), w.float(), b)
+    before = conv3x3.launches
+    out = conv3x3(x, w, b)
+    torch.cuda.synchronize()
+    assert conv3x3.launches == before + 1
+    assert out.dtype == dtype and out.shape == (B, Co, H, W)
+    tol = rtol * ref.abs().max().item()
+    assert (out.float() - ref).abs().max().item() <= tol
+    # channels-last input through its strides, and no bias
+    xc = x.contiguous(memory_format=torch.channels_last)
+    ref0 = conv3x3_reference(x.float(), w.float(), None)
+    assert (conv3x3(xc, w, None).float() - ref0).abs().max().item() <= \
+        rtol * ref0.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_conv3x3_raises_on_unsupported_input(cuda_device):
+    x = torch.randn(1, 4, 5, 6, device=cuda_device)
+    w = torch.randn(3, 4, 3, 3, device=cuda_device)
+    with pytest.raises(TypeError):
+        conv3x3(x, w.bfloat16())
+    with pytest.raises(ValueError):
+        conv3x3(x, w.transpose(2, 3))  # not contiguous
+    with pytest.raises(ValueError):
+        conv3x3(x, w, torch.zeros(3, device=cuda_device, dtype=torch.float64))
+    with pytest.raises(NotImplementedError):
+        conv3x3(x, w.requires_grad_())

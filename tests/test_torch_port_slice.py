@@ -130,7 +130,7 @@ def test_serving_imports_no_jax():
         cfg = tiny_kitti_config()
         model = randomize_weights(OccDepthModel(cfg), seed=0)
         pipe = ServingPipeline(cfg, model, make_synthetic_batch(cfg),
-                               batch_size=2, max_in_flight=2)
+                               batch_size=2, max_in_flight=2, device="cpu")
         rs = np.random.RandomState(0)
         H, W = cfg.img_shape
         frames = [rs.randint(0, 256, (2, H, W, 3)).astype(np.uint8)
@@ -158,8 +158,9 @@ def test_serving_imports_no_jax():
 
 def test_training_imports_no_jax(tmp_path):
     """Every training-slice module imports, and the tiny Trainer takes 2
-    CPU steps (K4's path included), with jax, flax and the JAX package
-    unimportable."""
+    CPU steps (K4's path included) over a 2-sample dataset, validates,
+    keeps the best-by-val/mIoU checkpoint and resumes, with jax, flax and
+    the JAX package unimportable."""
     code = textwrap.dedent("""
         import sys
         for name in ("jax", "flax", "jaxlib", "optax", "occdepth_tpu"):
@@ -180,18 +181,20 @@ def test_training_imports_no_jax(tmp_path):
         import occdepth_tpu_torch.training.optim
         import occdepth_tpu_torch.training.step
         import occdepth_tpu_torch.training.trainer
-        from occdepth_tpu_torch.data.batch import make_synthetic_batch
-        from occdepth_tpu_torch.testing import tiny_kitti_config
+        from occdepth_tpu_torch.testing import synthetic_dataset, tiny_kitti_config
         from occdepth_tpu_torch.training import Trainer
 
         cfg = tiny_kitti_config(dw_conv_grad="pallas", log_every_n_steps=1)
-        batches = [make_synthetic_batch(cfg, 1, seed=s, with_labels=True)
-                   for s in (0, 1)]
-        trainer = Trainer(cfg, sys.argv[1], device="cpu").fit(batches, 2)
+        train_ds = synthetic_dataset(cfg, 2, seed=0)
+        val_ds = synthetic_dataset(cfg, 1, seed=1)
+        trainer = Trainer(cfg, sys.argv[1], device="cpu").fit(
+            train_ds, val_ds, max_steps=2)
         assert trainer.step == 2, trainer.step
         with open(trainer.metrics_logger.path) as f:
             recs = [json.loads(line) for line in f]
         assert [r["step"] for r in recs if "train/loss" in r] == [1, 2]
+        assert [r["step"] for r in recs if "val/mIoU" in r] == [2]
+        assert trainer.ckpt.has("best_val_mIoU")
         assert Trainer(cfg, sys.argv[1], device="cpu").step == 2
         jax_side = sorted(
             m for m, mod in sys.modules.items() if mod is not None
@@ -216,3 +219,14 @@ def test_trainer_needs_a_device_choice_without_cuda(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(tiny_kitti_config(), str(tmp_path))
+
+
+def test_serving_needs_a_device_choice_without_cuda(monkeypatch):
+    """device=None means CUDA: without a GPU the ServingPipeline raises
+    rather than serve on the CPU."""
+    from occdepth_tpu_torch.serving import ServingPipeline
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tiny_kitti_config()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingPipeline(cfg, OccDepthModel(cfg), make_synthetic_batch(cfg))
