@@ -38,7 +38,9 @@ Phases, one line each:
  11. K3 conv3x3 vs its plain version at the flagship decoder's ten 3x3
      conv shapes (batch 2 images), in bf16 and fp32 (TF32 off), with the
      device times (CUDA-graph replays) of K3, the plain version and
-     cuDNN's conv (F.conv2d), and the bound of each conv;
+     cuDNN's conv (F.conv2d), and the bound of each conv; then K3 vs its
+     plain version, untimed, at bench_conv2d's shapes that the decoder
+     lacks (up2 conv0 at Ci=120), on that script's inputs;
  12. the eval path: a synthetic SemanticKITTI tree (make_kitti_tree, 3 val
      frames) and a reference-schema .ckpt of seeded random weights;
      `evaluate` at batch 2 (a ragged last batch) in fp32 (TF32 off) with
@@ -47,7 +49,20 @@ Phases, one line each:
      confusion counts of the two within 1e-5 of the counted voxels, the
      padding counting 3 frames; then bf16 ms/frame of xla and pallas in
      turns, and the eval CLI as a subprocess, which must print the
-     metric table.
+     metric table;
+ 13. K6 row_gather vs its plain version at bench_gather's five table shapes
+     (262,144 indices), bf16 and fp32, bit for bit (a row of 33 values and
+     out-of-range indices too), with the device times (CUDA-graph replays,
+     in turns over 4 tables) of K6, the plain version and index_select, and
+     the bytes bound of each gather;
+ 14. K5 matmul_probe vs its plain version at bench_head_pallas's three
+     probes (one conv-equivalent each), within 2^-7 max|ref|, with the
+     device times of K5, the plain version and torch.matmul, and the bound;
+     K5 must not read under its bound (a product hoisted out of the step
+     loop would);
+ 15. the probe scripts bench_gather, bench_head_pallas --json and
+     bench_conv2d as subprocesses: each exits 0, prints a time for every
+     candidate and a launch count above 0 of its kernel (K6, K5, K3).
 Then a JSON line of per-kernel results, the `nvidia-smi` name/power-limit
 line, and as the last line {"ok": true, "device": {...}}.  Any failure
 raises and exits non-zero; there is no CPU fallback.
@@ -68,6 +83,14 @@ import time
 
 import numpy as np
 
+from occdepth_tpu_torch.scripts.bench_timing import (
+    BF16_FLOPS,
+    FP32_FLOPS,
+    bound_ms,
+    device_ms,
+    gpu_line,
+)
+
 K1_TOL = 1e-5  # fp32 row sums of 32 terms in another order
 K2_RTOL = 2e-5  # fp32 sums of 512 terms in another order, x max|ref|
 TINY_ATOL = 1e-3  # fp32 CUDA (cuDNN, TF32 off) vs CPU sums over a whole net
@@ -80,13 +103,11 @@ LOSS_RTOL = 1e-4  # tiny train step, CUDA vs CPU loss terms
 GRAD_RTOL, NOISE_MULT, N_PERTURB, FLIP_MULT = 1e-3, 4.0, 2, 2.0
 TRAIN_STEPS = 3
 K3_BATCH = 2  # one eval frame: 2 views through the backbone at once
+K5_RTOL = 2 ** -7  # x max|ref|: one bf16 rounding of fp32 sums reordered
 K3_RTOL = {"float32": 1e-4,  # x max|ref|: fp32 sums of 9*Ci terms reordered
            "bfloat16": 2 ** -7}  # one bf16 rounding of the output
 EVAL_FRAMES, EVAL_BATCH = 3, 2
 CONF_FLIP_FRAC = 1e-5  # of counted voxels: argmax flips xla vs pallas, fp32
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
-BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 FLAGSHIP = "semantic_kitti/multicam_flospdepth_crp_stereodepth_cascadecls"
 
 
@@ -113,43 +134,9 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def graph_ms(fn, reps: int = 20) -> float:
-    """Device time of one call of `fn` in ms: `reps` calls captured in one
-    CUDA graph, replayed between CUDA events, divided by `reps` (the host's
-    enqueue cost, which single-call timing of a µs-scale kernel measures,
-    is left out)."""
-    import torch
-
-    fn()  # warm-up outside the capture (cuDNN plans, allocator)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    times = []
-    for _ in range(5):
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return statistics.median(times)
-
-
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke: {what}")
-
-
-def bound_ms(n_bytes: float, n_ops: float, peak_ops: float) -> tuple:
-    """(least time in ms, "bytes" or "operations") for moving n_bytes at
-    the HBM rate and doing n_ops at peak_ops per second."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / peak_ops
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def flagship_dw_shapes(dev) -> list:
@@ -207,9 +194,9 @@ def phase_k4(dev) -> dict:
                     gy, x, w, None, [1, 1], [k // 2, k // 2], [1, 1], False,
                     [0, 0], C, [False, True, False])[1]
 
-            ms = graph_ms(lambda: dw_filter_grad(x, gy, k, k))
-            plain = graph_ms(lambda: dw_filter_grad_reference(x, gy, k, k))
-            lib = graph_ms(library)
+            ms = device_ms(lambda: dw_filter_grad(x, gy, k, k))
+            plain = device_ms(lambda: dw_filter_grad_reference(x, gy, k, k))
+            lib = device_ms(library)
             ms_single = cuda_ms(lambda: dw_filter_grad(x, gy, k, k))
             n = C * H * W
             b_ms, kind = bound_ms(2 * n * x.element_size() + C * k * k * 4,
@@ -361,11 +348,14 @@ def kernel_counters() -> dict:
     from occdepth_tpu_torch.ops.conv2d_shift import conv3x3
     from occdepth_tpu_torch.ops.crp_matmul import crp_relation_matmul
     from occdepth_tpu_torch.ops.dw_conv import dw_filter_grad
+    from occdepth_tpu_torch.ops.matmul_probe import matmul_probe
+    from occdepth_tpu_torch.ops.row_gather import row_gather
     from occdepth_tpu_torch.ops.stereo_fuse import stereo_cosine_fuse
 
     return {"stereo_cosine_fuse": stereo_cosine_fuse,
             "crp_relation_matmul": crp_relation_matmul,
-            "conv3x3": conv3x3, "dw_filter_grad": dw_filter_grad}
+            "conv3x3": conv3x3, "dw_filter_grad": dw_filter_grad,
+            "row_gather": row_gather, "matmul_probe": matmul_probe}
 
 
 def reset_counts() -> None:
@@ -506,6 +496,7 @@ def phase_k3(dev) -> dict:
     import torch.nn.functional as F
 
     from occdepth_tpu_torch.ops.conv2d_shift import conv3x3, conv3x3_reference
+    from occdepth_tpu_torch.scripts import bench_conv2d
 
     shapes = flagship_k3_shapes(dev)
     check(len(shapes) == 10, f"{len(shapes)} decoder 3x3 convs (expected 10)")
@@ -534,9 +525,9 @@ def phase_k3(dev) -> dict:
                               f"{err} > {tol}")
             del ref, out
             bl = b.to(dtype)
-            ms = graph_ms(lambda: conv3x3(x, w, b), reps=10)
-            plain = graph_ms(lambda: conv3x3_reference(x, w, b), reps=10)
-            lib = graph_ms(lambda: F.conv2d(x, w, bl, 1, 1), reps=10)
+            ms = device_ms(lambda: conv3x3(x, w, b), calls=10)
+            plain = device_ms(lambda: conv3x3_reference(x, w, b), calls=10)
+            lib = device_ms(lambda: F.conv2d(x, w, bl, 1, 1), calls=10)
             n_bytes = ((x.numel() + w.numel() + K3_BATCH * Co * H * W)
                        * x.element_size() + Co * 4)
             b_ms, kind = bound_ms(n_bytes, 2 * K3_BATCH * H * W * 9 * Ci * Co,
@@ -557,6 +548,24 @@ def phase_k3(dev) -> dict:
         log("k3_total", dtype=name, convs=len(shapes),
             **{k: (f"{v:.4f}" if isinstance(v, float) and "err" not in k
                    else v) for k, v in tot.items()})
+        # bench_conv2d's shapes that the decoder lacks, on the bench's inputs
+        gb = torch.Generator(device=dev).manual_seed(0)
+        for shape in bench_conv2d.SHAPES:
+            B, H, W, Ci, Co = shape
+            x, w, b = bench_conv2d.make_inputs(shape, dtype, gb)
+            if B == K3_BATCH and (Ci, H, W, Co) in shapes:
+                continue
+            ref = conv3x3_reference(x.float(), w.float(), b)
+            err = (conv3x3(x, w, b).float() - ref).abs().max().item()
+            scale = ref.abs().max().item()
+            tol = K3_RTOL[name] * scale
+            log("k3_bench_shape", dtype=name, shape=f"({B},{Ci},{H},{W})->{Co}",
+                max_abs_err=err, tol=f"{tol:.3e}")
+            check(err <= tol, f"K3 {name} bench_conv2d {shape} error "
+                              f"{err} > {tol}")
+            tot["max_abs_err"] = max(tot["max_abs_err"], err)
+            tot["max_rel_err"] = max(tot["max_rel_err"], err / scale)
+            del x, w, ref
         res[name] = tot
     torch.cuda.empty_cache()
     return res
@@ -669,6 +678,205 @@ def phase_eval(dev, smi: str) -> dict:
             "flips": flips, "counted": counted}
 
 
+def bits(t):
+    """t's bits as integers, so NaN rows compare equal bit for bit."""
+    import torch
+
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def phase_k6(dev) -> dict:
+    """13. K6 vs its plain version at bench_gather's five shapes."""
+    import torch
+
+    from occdepth_tpu_torch.ops.row_gather import row_gather, row_gather_reference
+    from occdepth_tpu_torch.scripts.bench_gather import (
+        N,
+        SHAPES,
+        in_turns,
+        xla_take,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    res = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+               "bound_ms": 0.0, "max_abs_err": 0.0}
+        # a row that is not a multiple of 16 bytes (the element-wise path),
+        # and indices below -R, negative and past the end (NaN rows)
+        for R, Cc in ((1000, 33), (SHAPES[0][1], SHAPES[0][2])):
+            table = torch.randn(R, Cc, device=dev, generator=g).to(dtype)
+            idx = torch.randint(-2 * R, 2 * R, (4099,), device=dev,
+                                generator=g, dtype=torch.int32)
+            out = row_gather(table, idx)
+            check(torch.equal(bits(out), bits(row_gather_reference(table, idx))),
+                  f"K6 {name} ({R},{Cc}) with out-of-range indices differs")
+        for shape, R, Cc in SHAPES:
+            variants = [
+                (torch.randn(R, Cc, device=dev, generator=g).to(dtype),
+                 torch.randint(0, R, (N,), device=dev, generator=g,
+                               dtype=torch.int32)) for _ in range(4)]
+            table, idx = variants[0]
+            out, ref = row_gather(table, idx), row_gather_reference(table, idx)
+            torch.cuda.synchronize()
+            check(torch.equal(bits(out), bits(ref)),
+                  f"K6 {name} {shape} differs from its plain version")
+            err = (out.float() - ref.float()).abs().max().item()
+            ms = device_ms(in_turns(row_gather, variants))
+            plain = device_ms(in_turns(row_gather_reference, variants))
+            lib = device_ms(in_turns(xla_take, variants))
+            # what this run's data needs: output, indices, each distinct
+            # table row once
+            rows = torch.unique(idx).numel()
+            es = table.element_size()
+            b_ms, kind = bound_ms(N * Cc * es + 4 * N + rows * Cc * es, 0,
+                                  BF16_FLOPS)
+            log("k6", dtype=name, shape=shape, table=f"({R},{Cc})",
+                indices=N, distinct_rows=rows, max_abs_err=err,
+                ms=f"{ms:.5f}", plain_ms=f"{plain:.5f}",
+                library_ms=f"{lib:.5f}", bound_ms=f"{b_ms:.5f}",
+                bound_by=kind, bound_share=f"{b_ms / ms:.3f}")
+            for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                         ("bound_ms", b_ms)):
+                tot[k] += v
+            tot["max_abs_err"] = max(tot["max_abs_err"], err)
+            del variants, table, idx, out, ref
+        tot["bound_by"] = "bytes"
+        log("k6_total", dtype=name, shapes=len(SHAPES),
+            **{k: (f"{v:.5f}" if isinstance(v, float) and "err" not in k
+                   else v) for k, v in tot.items()})
+        res[name] = tot
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_k5(dev) -> dict:
+    """14. K5 vs its plain version at the three head probes."""
+    import torch
+
+    from occdepth_tpu_torch.ops.matmul_probe import (
+        matmul_probe,
+        matmul_probe_reference,
+    )
+    from occdepth_tpu_torch.scripts.bench_head_pallas import (
+        PROBES,
+        pallas_matmul_probe,
+    )
+
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+           "max_abs_err": 0.0, "max_rel_err": 0.0}
+    kinds = set()
+    for name, m, k, n, steps in PROBES:
+        _, p, w = pallas_matmul_probe(m, k, n, steps, device=dev)
+        out = matmul_probe(p, w, steps)
+        ref = matmul_probe_reference(p, w, steps)
+        torch.cuda.synchronize()
+        scale = ref.float().abs().max().item()
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = K5_RTOL * scale
+        check(err <= tol, f"K5 {name} error {err} > {tol}")
+        del out, ref
+        ms = device_ms(lambda: matmul_probe(p, w, steps), calls=10)
+        plain = device_ms(lambda: matmul_probe_reference(p, w, steps),
+                          calls=10)
+        lib = device_ms(lambda: torch.matmul(p.expand(steps, m, k), w),
+                        calls=10)
+        b_ms, kind = bound_ms(2 * (m * k + k * n + steps * m * n),
+                              2 * m * k * n * steps, BF16_FLOPS)
+        kinds.add(kind)
+        log("k5", probe=name, shape=f"({m},{k})@({k},{n})x{steps}",
+            max_abs_err=err, tol=f"{tol:.3e}", ms=f"{ms:.4f}",
+            plain_ms=f"{plain:.4f}", library_ms=f"{lib:.4f}",
+            bound_ms=f"{b_ms:.4f}", bound_by=kind,
+            bound_share=f"{b_ms / ms:.3f}",
+            tflops=f"{2 * m * k * n * steps / ms / 1e9:.1f}")
+        check(ms >= b_ms, f"K5 {name} took {ms} ms, under its bound {b_ms}: "
+                          "the product was hoisted out of the step loop")
+        for key, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                       ("bound_ms", b_ms)):
+            tot[key] += v
+        tot["max_abs_err"] = max(tot["max_abs_err"], err)
+        tot["max_rel_err"] = max(tot["max_rel_err"], err / scale)
+        del p, w
+    tot["bound_by"] = "bytes" if kinds == {"bytes"} else "operations"
+    log("k5_total", probes=len(PROBES),
+        **{k: (f"{v:.4f}" if isinstance(v, float) and "err" not in k else v)
+           for k, v in tot.items()})
+    torch.cuda.empty_cache()
+    return tot
+
+
+def run_probe(module: str, *args) -> list:
+    """Run a probe script as a user does; its stdout lines."""
+    cmd = [sys.executable, "-m", f"occdepth_tpu_torch.scripts.{module}",
+           *args]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines = proc.stdout.strip().splitlines()
+    for line in lines:
+        print(f"[{module}] {line}", flush=True)
+    check(proc.returncode == 0,
+          f"{module} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    log("probe_script", script=module, seconds=f"{time.perf_counter() - t0:.1f}")
+    return lines
+
+
+def probe_launches(lines, name: str) -> int:
+    """The launch count a probe script printed for kernel `name`."""
+    found = [int(l.split("=")[1]) for l in lines
+             if l.startswith(f"launches {name}=")]
+    check(len(found) == 1, f"no launch count of {name} printed")
+    return found[0]
+
+
+def phase_probes() -> dict:
+    """15. The three probe scripts as subprocesses: every candidate timed,
+    their kernel launched."""
+    import re
+
+    from occdepth_tpu_torch.scripts.bench_conv2d import CANDIDATES
+    from occdepth_tpu_torch.scripts.bench_conv2d import SHAPES as CONV_SHAPES
+    from occdepth_tpu_torch.scripts.bench_gather import SHAPES, candidates
+    from occdepth_tpu_torch.scripts.bench_head_pallas import PROBES
+
+    launches = {}
+
+    def times(lines, pattern):
+        return [float(m.group(1)) for m in map(re.compile(pattern).search,
+                                                lines) if m]
+
+    lines = run_probe("bench_gather", "--repeats", "4")
+    want = sum(len(candidates(rows)) for _, rows, _ in SHAPES)
+    got = times(lines, r"^\s+\w+\s+([0-9.]+) ms/gather")
+    check(len(got) == want and all(0 < t < math.inf for t in got),
+          f"bench_gather printed {len(got)} of {want} candidate times")
+    launches["row_gather"] = probe_launches(lines, "row_gather")
+
+    lines = run_probe("bench_head_pallas", "--repeats", "2", "--json")
+    res = json.loads(lines[-1])
+    keys = ([f"xla_conv_d{d}_ms" for d in (1, 2, 3)] + ["xla_head_eval_ms"]
+            + [f"pallas_{name}_ms" for name, *_ in PROBES])
+    check(all(0 < res.get(k, 0) < math.inf for k in keys),
+          f"bench_head_pallas --json lacks a time: {res}")
+    check(res["launches"]["matmul_probe"]
+          == probe_launches(lines, "matmul_probe"), "two K5 launch counts")
+    launches["matmul_probe"] = res["launches"]["matmul_probe"]
+
+    lines = run_probe("bench_conv2d", "--repeats", "2")
+    got = times(lines, r"\)\s+\w+\s+([0-9.]+) ms\s+\[")  # not `bound`
+    want = len(CONV_SHAPES) * len(CANDIDATES)
+    check(len(got) == want and all(0 < t < math.inf for t in got),
+          f"bench_conv2d printed {len(got)} of {want} candidate times")
+    launches["conv3x3"] = probe_launches(lines, "conv3x3")
+
+    log("probes", **{f"{k}_launches": v for k, v in launches.items()},
+        head=json.dumps(res).replace(" ", ""))
+    check(min(launches.values()) > 0, f"a probe launched no kernel: {launches}")
+    return {"launches": launches, "head": res}
+
+
 def main() -> None:
     import torch
 
@@ -692,11 +900,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = gpu_line()
     log("env", torch=torch.__version__, cuda=torch.version.cuda,
         gpu=repr(smi), count=torch.cuda.device_count())
 
@@ -823,10 +1027,15 @@ def main() -> None:
     # ---- 11-12. K3 and the eval path ----
     k3 = phase_k3(dev)
     evaluation = phase_eval(dev, smi)
+    # ---- 13-15. K6, K5 and the probe scripts ----
+    k6 = phase_k6(dev)
+    k5 = phase_k5(dev)
+    probes = phase_probes()
 
     def by_path(name):
         paths = {"serve": launches[name], "train": train["launches"][name],
-                 "eval": evaluation["launches"][name]}
+                 "eval": evaluation["launches"][name],
+                 "probe": probes["launches"].get(name, 0)}
         return {"launches": sum(paths.values()), "launches_by_path": paths}
 
     bf16 = k2[torch.bfloat16]
@@ -874,6 +1083,26 @@ def main() -> None:
          "fp32": {k: v for k, v in k3["float32"].items()},
          "timed": "sum over the flagship decoder's ten 3x3 convs at batch 2 "
                   "images (one eval frame), bf16; fp32 (TF32 off) beside"},
+        {"name": "row_gather", "route": "cuda",
+         "source": "occdepth_tpu_torch/csrc/row_gather.cu",
+         "replaces": "occdepth_tpu/scripts/bench_gather.py:111",
+         **by_path("row_gather"),
+         "max_abs_err": max(t["max_abs_err"] for t in k6.values()),
+         **{k: k6["bfloat16"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms")},
+         "fp32": k6["float32"],
+         "timed": "sum over bench_gather's five table shapes, 262,144 int32 "
+                  "indices each, in turns over 4 variants, bf16; fp32 "
+                  "beside; library: torch.index_select"},
+        {"name": "matmul_probe", "route": "cuda",
+         "source": "occdepth_tpu_torch/csrc/matmul_probe.cu",
+         "replaces": "occdepth_tpu/scripts/bench_head_pallas.py:55",
+         **by_path("matmul_probe"),
+         **{k: k5[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms")},
+         "timed": "sum over bench_head_pallas's three probes at one "
+                  "conv-equivalent each, bf16; library: torch.matmul of p "
+                  "expanded over the steps"},
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

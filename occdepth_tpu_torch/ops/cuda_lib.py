@@ -49,6 +49,8 @@ _SIGNATURES = {
         [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int] + [_I64] * 14 + [_P]
     ),
     "occ_conv3x3": [_P, _P, _P, _P, ctypes.c_int] + [_I64] * 9 + [_P],
+    "occ_row_gather": [_P, _P, _P, _I64, _I64, _I64, ctypes.c_int, _P],
+    "occ_matmul_probe": [_P, _P, _P] + [_I64] * 4 + [_P],
 }
 
 

@@ -1,4 +1,4 @@
-"""Port kernels K1/K2/K3/K4: plain versions vs the JAX Pallas kernels
+"""Port kernels K1/K2/K3/K4/K5/K6: plain versions vs the JAX Pallas kernels
 (interpret mode on the CPU), their autograd, and the CUDA kernels vs the
 plain versions (`cuda` marker, skipped without a card).
 
@@ -25,6 +25,11 @@ from occdepth_tpu_torch.ops.dw_conv import (
     dw_filter_grad_reference,
     use_fast_dw_grad,
 )
+from occdepth_tpu_torch.ops.matmul_probe import (
+    matmul_probe,
+    matmul_probe_reference,
+)
+from occdepth_tpu_torch.ops.row_gather import row_gather, row_gather_reference
 from occdepth_tpu_torch.ops.stereo_fuse import (
     stereo_cosine_fuse,
     stereo_cosine_fuse_reference,
@@ -368,3 +373,77 @@ def test_conv3x3_raises_on_unsupported_input(cuda_device):
         conv3x3(x, w, torch.zeros(3, device=cuda_device, dtype=torch.float64))
     with pytest.raises(NotImplementedError):
         conv3x3(x, w.requires_grad_())
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(300, 32, 8192), (97, 104, 4099),
+                                   (1000, 33, 5000), (7, 1, 100)])
+def test_row_gather_kernel_matches_plain(cuda_device, dtype, shape):
+    """Bit for bit, NaN rows included: indices span [-2R, 2R), so some
+    count from the end and some are out of range; C = 33 and 1 take the
+    element-wise path (rows not a multiple of 16 bytes)."""
+    R, C, T = shape
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    table = torch.randn(R, C, device=cuda_device, generator=g).to(dtype)
+    idx = torch.randint(-2 * R, 2 * R, (T,), device=cuda_device, generator=g,
+                        dtype=torch.int32)
+    before = row_gather.launches
+    out = row_gather(table, idx)
+    torch.cuda.synchronize()
+    assert row_gather.launches == before + 1
+    assert out.dtype == dtype and out.shape == (T, C)
+    assert torch.equal(_bits(out), _bits(row_gather_reference(table, idx)))
+    assert out.isnan().any() and not out.isnan().all()
+
+
+@pytest.mark.cuda
+def test_row_gather_raises_on_unsupported_input(cuda_device):
+    table = torch.randn(10, 8, device=cuda_device)
+    idx = torch.zeros(4, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError):
+        row_gather(table, idx.long())
+    with pytest.raises(TypeError):
+        row_gather(table.double(), idx)
+    with pytest.raises(ValueError):
+        row_gather(table.t(), idx)  # not contiguous
+    with pytest.raises(ValueError):
+        row_gather(table, idx.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 48, 16, 3), (32, 144, 48, 2),
+                                   (16, 512, 64, 2), (80, 80, 80, 5),
+                                   (8192, 432, 16, 4), (2048, 512, 512, 2)])
+def test_matmul_probe_kernel_matches_plain(cuda_device, shape):
+    """One bf16 rounding of fp32 sums taken in another order: 2^-7 *
+    max|ref|.  (80, 80, 80) takes a partial row tile and 16-column panels;
+    the last two are the head probes' im2col and lanefold shapes."""
+    m, k, n, steps = shape
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    p = torch.randn(1, m, k, device=cuda_device, generator=g).bfloat16()
+    w = torch.randn(k, n, device=cuda_device, generator=g).bfloat16()
+    before = matmul_probe.launches
+    out = matmul_probe(p, w, steps)
+    torch.cuda.synchronize()
+    assert matmul_probe.launches == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == (steps, m, n)
+    ref = matmul_probe_reference(p, w, steps).float()
+    assert (out.float() - ref).abs().max().item() <= \
+        2 ** -7 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_matmul_probe_raises_on_unsupported_input(cuda_device):
+    p = torch.randn(1, 32, 32, device=cuda_device).bfloat16()
+    w = torch.randn(32, 16, device=cuda_device).bfloat16()
+    with pytest.raises(TypeError):
+        matmul_probe(p.float(), w.float(), 2)
+    with pytest.raises(ValueError):
+        matmul_probe(p[:, :24], w, 2)  # m not a multiple of 16
+    with pytest.raises(ValueError):
+        matmul_probe(p.transpose(1, 2), w, 2)  # p not contiguous

@@ -157,10 +157,10 @@ def test_serving_imports_no_jax():
 
 
 def test_training_imports_no_jax(tmp_path):
-    """Every training-slice module imports, and the tiny Trainer takes 2
-    CPU steps (K4's path included) over a 2-sample dataset, validates,
-    keeps the best-by-val/mIoU checkpoint and resumes, with jax, flax and
-    the JAX package unimportable."""
+    """Every training-slice module and the kernel probe scripts import, and
+    the tiny Trainer takes 2 CPU steps (K4's path included) over a 2-sample
+    dataset, validates, keeps the best-by-val/mIoU checkpoint and resumes,
+    with jax, flax and the JAX package unimportable."""
     code = textwrap.dedent("""
         import sys
         for name in ("jax", "flax", "jaxlib", "optax", "occdepth_tpu"):
@@ -176,6 +176,12 @@ def test_training_imports_no_jax(tmp_path):
         import occdepth_tpu_torch.losses.metrics
         import occdepth_tpu_torch.losses.ssc
         import occdepth_tpu_torch.ops.dw_conv
+        import occdepth_tpu_torch.ops.matmul_probe
+        import occdepth_tpu_torch.ops.row_gather
+        import occdepth_tpu_torch.scripts.bench_conv2d
+        import occdepth_tpu_torch.scripts.bench_gather
+        import occdepth_tpu_torch.scripts.bench_head_pallas
+        import occdepth_tpu_torch.scripts.bench_timing
         import occdepth_tpu_torch.training.checkpoint
         import occdepth_tpu_torch.training.logging
         import occdepth_tpu_torch.training.optim
