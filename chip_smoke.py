@@ -35,31 +35,37 @@ Phases, one line each:
      view 0 per step, K1 and K2 4 times per step and per validation
      forward; val/mIoU logged, best_val_mIoU kept; metrics.jsonl written;
      a second Trainer resumes at step 3;
- 11. K3 conv3x3 vs its plain version at the flagship decoder's ten 3x3
-     conv shapes (batch 2 images), in bf16 and fp32 (TF32 off), with the
-     device times (CUDA-graph replays) of K3, the plain version and
-     cuDNN's conv (F.conv2d), and the bound of each conv; then K3 vs its
-     plain version, untimed, at bench_conv2d's shapes that the decoder
-     lacks (up2 conv0 at Ci=120), on that script's inputs;
+ 11. K3 conv3x3 (implicit GEMM on 128-pixel tiles: in bf16 one TMA halo
+     load per 64 channels read by shifted descriptors for the nine taps,
+     wgmma on two consumer warpgroups; in fp32 TMA-staged taps and SIMT
+     fmaf) vs its plain version at the flagship decoder's ten 3x3 conv
+     shapes (batch 2 images, NCHW inputs, so the wrapper's packing
+     copies are timed), in bf16 and fp32 (TF32 off), with the device
+     times (CUDA-graph replays) of K3, the plain version and cuDNN's conv
+     (F.conv2d), the bound, TFLOP/s and bound share of each conv; K3 must
+     not read under its bound (a kernel that skipped work would); then K3
+     vs its plain version, untimed, at bench_conv2d's shapes that the
+     decoder lacks (up2 conv0 at Ci=120), on that script's inputs;
  12. the eval path: a synthetic SemanticKITTI tree (make_kitti_tree, 3 val
      frames) and a reference-schema .ckpt of seeded random weights;
      `evaluate` at batch 2 (a ragged last batch) in fp32 (TF32 off) with
      decoder_conv_impl=xla and =pallas (counters set to 0 just before
      each): K3 launched 20 times under pallas and never under xla, the
      confusion counts of the two within 1e-5 of the counted voxels, the
-     padding counting 3 frames; then bf16 ms/frame of xla and pallas in
-     turns, and the eval CLI as a subprocess, which must print the
-     metric table;
+     padding counting 3 frames; then, after one untimed bf16 pass of
+     each, bf16 ms/frame of xla and pallas in turns, and the eval CLI as a
+     subprocess, which must print the metric table;
  13. K6 row_gather vs its plain version at bench_gather's five table shapes
      (262,144 indices), bf16 and fp32, bit for bit (a row of 33 values and
      out-of-range indices too), with the device times (CUDA-graph replays,
      in turns over 4 tables) of K6, the plain version and index_select, and
      the bytes bound of each gather;
- 14. K5 matmul_probe vs its plain version at bench_head_pallas's three
-     probes (one conv-equivalent each), within 2^-7 max|ref|, with the
-     device times of K5, the plain version and torch.matmul, and the bound;
-     K5 must not read under its bound (a product hoisted out of the step
-     loop would);
+ 14. K5 matmul_probe (operands resident in shared memory after one TMA
+     load, wgmma chains on two warpgroups taking the steps in turn, TMA
+     stores) vs its plain version at bench_head_pallas's three probes (one
+     conv-equivalent each), within 2^-7 max|ref|, with the device times of
+     K5, the plain version and torch.matmul, and the bound; K5 must not
+     read under its bound (a product hoisted out of the step loop would);
  15. the probe scripts bench_gather, bench_head_pallas --json and
      bench_conv2d as subprocesses: each exits 0, prints a time for every
      candidate and a launch count above 0 of its kernel (K6, K5, K3).
@@ -530,13 +536,17 @@ def phase_k3(dev) -> dict:
             lib = device_ms(lambda: F.conv2d(x, w, bl, 1, 1), calls=10)
             n_bytes = ((x.numel() + w.numel() + K3_BATCH * Co * H * W)
                        * x.element_size() + Co * 4)
-            b_ms, kind = bound_ms(n_bytes, 2 * K3_BATCH * H * W * 9 * Ci * Co,
-                                  peak)
+            flops = 2 * K3_BATCH * H * W * 9 * Ci * Co
+            b_ms, kind = bound_ms(n_bytes, flops, peak)
             kinds.add(kind)
             log("k3", dtype=name, shape=f"({K3_BATCH},{Ci},{H},{W})->{Co}",
                 max_abs_err=err, tol=f"{tol:.3e}", ms=f"{ms:.4f}",
                 plain_ms=f"{plain:.4f}", library_ms=f"{lib:.4f}",
-                bound_ms=f"{b_ms:.4f}", bound_by=kind)
+                bound_ms=f"{b_ms:.4f}", bound_by=kind,
+                bound_share=f"{b_ms / ms:.3f}",
+                tflops=f"{flops / ms / 1e9:.1f}")
+            check(ms >= b_ms, f"K3 {name} ({Ci},{H},{W})->{Co} took {ms} ms, "
+                              f"under its bound {b_ms}: work was skipped")
             tot["ms"] += ms
             tot["plain_ms"] += plain
             tot["library_ms"] += lib
@@ -545,6 +555,7 @@ def phase_k3(dev) -> dict:
             tot["max_rel_err"] = max(tot["max_rel_err"], err / scale)
             del x, w
         tot["bound_by"] = "bytes" if kinds == {"bytes"} else "operations"
+        tot["bound_share"] = tot["bound_ms"] / tot["ms"]
         log("k3_total", dtype=name, convs=len(shapes),
             **{k: (f"{v:.4f}" if isinstance(v, float) and "err" not in k
                    else v) for k, v in tot.items()})
@@ -636,9 +647,15 @@ def phase_eval(dev, smi: str) -> dict:
         check(flips <= CONF_FLIP_FRAC * counted,
               f"pallas vs xla confusion differs in {flips} voxels")
 
-        # bf16 eval device time, in turns
+        # bf16 eval device time, in turns, after one untimed bf16 pass of
+        # each (the first pass of a path pays one-time costs, cuDNN plans
+        # and kernel loading for layouts this process has not run yet)
         times = {"xla": [], "pallas": []}
         peaks = {"xla": [], "pallas": []}
+        for impl in ("xla", "pallas"):
+            evaluate(dataclasses.replace(
+                cfg, decoder_conv_impl=impl, compute_dtype="bfloat16"),
+                torch_ckpt=ckpt)
         for impl in ("xla", "pallas", "pallas", "xla"):
             torch.cuda.reset_peak_memory_stats()
             stats = evaluate(dataclasses.replace(
@@ -800,6 +817,7 @@ def phase_k5(dev) -> dict:
         tot["max_rel_err"] = max(tot["max_rel_err"], err / scale)
         del p, w
     tot["bound_by"] = "bytes" if kinds == {"bytes"} else "operations"
+    tot["bound_share"] = tot["bound_ms"] / tot["ms"]
     log("k5_total", probes=len(PROBES),
         **{k: (f"{v:.4f}" if isinstance(v, float) and "err" not in k else v)
            for k, v in tot.items()})
@@ -1080,6 +1098,7 @@ def main() -> None:
          "bound_ms": k3["bfloat16"]["bound_ms"],
          "bound_by": k3["bfloat16"]["bound_by"],
          "library_ms": k3["bfloat16"]["library_ms"],
+         "bound_share": k3["bfloat16"]["bound_share"],
          "fp32": {k: v for k, v in k3["float32"].items()},
          "timed": "sum over the flagship decoder's ten 3x3 convs at batch 2 "
                   "images (one eval frame), bf16; fp32 (TF32 off) beside"},
@@ -1099,7 +1118,7 @@ def main() -> None:
          "replaces": "occdepth_tpu/scripts/bench_head_pallas.py:55",
          **by_path("matmul_probe"),
          **{k: k5[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                               "bound_by", "library_ms")},
+                               "bound_by", "library_ms", "bound_share")},
          "timed": "sum over bench_head_pallas's three probes at one "
                   "conv-equivalent each, bf16; library: torch.matmul of p "
                   "expanded over the steps"},

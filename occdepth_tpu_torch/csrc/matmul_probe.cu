@@ -13,142 +13,183 @@
 // What bounds it on Hopper: the tensor cores at im2col and lanefold (2 m k
 // n flops per step against 2 m n output bytes), the output bytes at dzpack
 // (its k is short).  The inputs are read once.  Design:
-//   * a block owns a 64-row tile of p and a panel of NP <= 64 columns of w,
-//     stages both in shared memory once (p as is, w transposed so that its
-//     columns are contiguous; rows padded by 16 bytes so ldmatrix's eight
-//     row addresses fall in distinct banks), and keeps them for all its
-//     steps: no operand traffic after the first touch;
-//   * the blocks of one tile split the steps among them (grid z), enough
-//     blocks to fill every SM;
-//   * each of the 4 warps computes 16 rows x NP columns per step on the
-//     tensor cores with mma.sync m16n8k16 (bf16 in, fp32 accumulators),
-//     operands from shared memory through ldmatrix, and stores the rounded
-//     bf16 pairs straight from the accumulators;
+//   * a block of one warpgroup owns a 64-row tile of p and a panel of NP
+//     columns of w (NP = 128, 64, 48 or 16, whichever divides n first);
+//     one TMA load per 64-element k-chunk brings each into shared memory
+//     once, 128B-swizzled and K-major (w arrives transposed: the wrapper
+//     passes w^T (n, k)), where they stay for all of the block's steps;
+//   * the blocks of one tile split the steps among them (grid z), as many
+//     as fill every SM once;
+//   * two consumer warpgroups share the tiles and take the block's steps
+//     in turn.  Each step is one chain of k/16 wgmma m64nNPk16 into the
+//     warpgroup's fp32 registers, operands read by the tensor cores
+//     straight from the swizzled tiles, then its epilogue: round to bf16,
+//     stage in the warpgroup's shared buffer, one TMA store.  While one
+//     warpgroup is in its epilogue the other's chain keeps the tensor
+//     cores busy, and the stores run behind both;
 //   * the operands do not change between steps, so a compiler could hoist
 //     the product out of the step loop and leave a kernel that only
-//     stores.  ldmatrix and mma are `asm volatile`, which the compiler may
-//     neither move out of the loop nor delete; chip_smoke.py also fails if
-//     a run reads under the operations bound.
-// Not used yet: wgmma (the only path to the full bf16 rate), TMA, stores
-// through shared memory (later work).
+//     stores.  wgmma is `asm volatile`, which the compiler may neither move
+//     out of the loop nor delete; chip_smoke.py also fails if a run reads
+//     under the operations bound.
+// Staging: the output tile goes through a 128B-swizzled buffer when NP is
+// a multiple of 64 (conflict-free 4-byte writes from the fragments), a
+// plain row-major one otherwise.
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int TM = 64;        // rows of p per block: 4 warps x 16
-constexpr int THREADS = 128;
-constexpr int PAD = 8;        // bf16 of padding per shared row
+using namespace hopper;
+
+constexpr int TM = 64;  // rows of p per block: one wgmma M
+constexpr int THREADS = 256;  // two consumer warpgroups
 constexpr int MAX_SMEM = 232448;  // a Hopper block's dynamic shared memory
+constexpr int P_CHUNK = TM * 128;  // one 64-element k-chunk of the p tile
 
-__device__ __forceinline__ unsigned smem_u32(const void* ptr) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(ptr));
+template <int NP>
+struct Tile {
+  static constexpr bool SW_OUT = NP % 64 == 0;
+  static constexpr int W_CHUNK = NP * 128;
+  static constexpr int OUT_BYTES = TM * NP * 2;
+  static int smem(int kc) {
+    return 1024 + kc * (P_CHUNK + W_CHUNK) + 2 * OUT_BYTES + 16;
+  }
+};
+
+// round a warpgroup's accumulators to bf16 into its staging buffer `buf`
+// and store them as step s's (64 x NP) tile; wg_tid is the thread's index
+// in the warpgroup, `bar` the warpgroup's named barrier
+template <int NP>
+__device__ __forceinline__ void store_step(const float (&acc)[NP / 2],
+                                           unsigned char* buf,
+                                           const CUtensorMap* tm_o, int col0,
+                                           int row0, int s, int wg_tid,
+                                           int bar) {
+  // the warpgroup's previous store has finished reading the buffer
+  if (wg_tid == 0) bulk_wait_read<0>();
+  named_barrier(bar, 128);
+  const int lane = wg_tid & 31;
+  const int r0 = (wg_tid >> 5) * 16 + (lane >> 2);
+  const int cq = (lane & 3) * 2;
+#pragma unroll
+  for (int j = 0; j < NP / 8; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+      const int c = 8 * j + cq;
+      int off;
+      if constexpr (Tile<NP>::SW_OUT) {
+        off = (c >> 6) * (TM * 128) + r * 128 +
+              ((((c & 63) >> 3) ^ (r & 7)) << 4) + (c & 7) * 2;
+      } else {
+        off = (r * NP + c) * 2;
+      }
+      *reinterpret_cast<__nv_bfloat162*>(buf + off) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  }
+  fence_async_shared();
+  named_barrier(bar, 128);
+  if (wg_tid == 0) {
+    if constexpr (Tile<NP>::SW_OUT) {
+#pragma unroll
+      for (int c = 0; c < NP / 64; ++c)
+        tma_store_3d(tm_o, smem_u32(buf + c * TM * 128), col0 + 64 * c, row0,
+                     s);
+    } else {
+      tma_store_3d(tm_o, smem_u32(buf), col0, row0, s);
+    }
+    bulk_commit();
+  }
 }
 
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], unsigned addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 in, fp32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// NT n8-tiles per block: NP = 8 * NT output columns
-template <int NT>
-__global__ void __launch_bounds__(THREADS)
-matmul_probe_kernel(const __nv_bfloat16* __restrict__ p,
-                    const __nv_bfloat16* __restrict__ w,
-                    __nv_bfloat16* __restrict__ out, int m, int k, int n,
+template <int NP>
+__global__ void __launch_bounds__(THREADS, 1)
+matmul_probe_kernel(const __grid_constant__ CUtensorMap tm_p,
+                    const __grid_constant__ CUtensorMap tm_w,
+                    const __grid_constant__ CUtensorMap tm_o, int k,
                     int n_steps) {
-  constexpr int NP = NT * 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int lds = k + PAD;  // shared row stride, in bf16
-  __nv_bfloat16* s_p = reinterpret_cast<__nv_bfloat16*>(smem);  // [TM][lds]
-  __nv_bfloat16* s_w = s_p + TM * lds;  // [NP][lds]: w's panel, transposed
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int kc = (k + 63) / 64;
+  unsigned char* s_p = smem;                          // [kc][TM rows][128 B]
+  unsigned char* s_w = s_p + kc * P_CHUNK;            // [kc][NP rows][128 B]
+  unsigned char* s_o = s_w + kc * Tile<NP>::W_CHUNK;  // an out tile per wg
+  const uint32_t bar = smem_u32(s_o + 2 * Tile<NP>::OUT_BYTES);
   const int tid = threadIdx.x;
   const int row0 = blockIdx.x * TM;
   const int col0 = blockIdx.y * NP;
 
-  // p's tile, 16 bytes a thread (k % 16 == 0: rows are whole vectors)
-  const int kv = k / 8;
-  for (int e = tid; e < TM * kv; e += THREADS) {
-    const int r = e / kv;
-    const int c = e - r * kv;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < m)
-      v = *reinterpret_cast<const uint4*>(p + (long long)(row0 + r) * k +
-                                          c * 8);
-    *reinterpret_cast<uint4*>(s_p + r * lds + c * 8) = v;
-  }
-  // s_w[j][kk] = w[kk][col0 + j]: coalesced reads along the columns
-  for (int e = tid; e < k * NP; e += THREADS) {
-    const int kk = e / NP;
-    const int j = e - kk * NP;
-    s_w[j * lds + kk] = w[(long long)kk * n + col0 + j];
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    mbar_fence_init();
   }
   __syncthreads();
-
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int wrow = row0 + warp * 16;
-  if (wrow >= m) return;  // m % 16 == 0: a warp's rows are all in or out
-  // ldmatrix.x4 row addresses: A's four 8x8 pieces are (rows 0-7 | 8-15) x
-  // (k 0-7 | 8-15); B's are (n 0-7, k 0-7), (n 0-7, k 8-15), (n 8-15, k
-  // 0-7), (n 8-15, k 8-15) of a pair of n8-tiles
-  const unsigned a_addr =
-      smem_u32(s_p + (warp * 16 + (lane & 15)) * lds + (lane >> 4) * 8);
-  const unsigned b_addr = smem_u32(
-      s_w + ((lane & 7) + (lane >> 4) * 8) * lds + ((lane >> 3) & 1) * 8);
-  const int g = lane >> 2;  // accumulator rows g and g + 8
-  const int tg = lane & 3;  // accumulator columns 2 tg and 2 tg + 1
-
-#pragma unroll 1
-  for (int s = blockIdx.z; s < n_steps; s += gridDim.z) {
-    float acc[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-    for (int k0 = 0; k0 < k; k0 += 16) {
-      unsigned a[4];
-      unsigned b[NT / 2][4];
-      ldmatrix_x4(a, a_addr + k0 * 2);
-#pragma unroll
-      for (int j = 0; j < NT / 2; ++j)
-        ldmatrix_x4(b[j], b_addr + (j * 16 * lds + k0) * 2);
-#pragma unroll
-      for (int j = 0; j < NT / 2; ++j) {
-        mma_bf16(acc[2 * j], a, b[j][0], b[j][1]);
-        mma_bf16(acc[2 * j + 1], a, b[j][2], b[j][3]);
-      }
-    }
-    __nv_bfloat16* o = out + ((long long)s * m + wrow + g) * n + col0 + tg * 2;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(o + j * 8) =
-          __floats2bfloat162_rn(acc[j][0], acc[j][1]);
-      *reinterpret_cast<__nv_bfloat162*>(o + 8LL * n + j * 8) =
-          __floats2bfloat162_rn(acc[j][2], acc[j][3]);
+  if (tid == 0) {
+    mbar_expect_tx(bar, kc * (P_CHUNK + Tile<NP>::W_CHUNK));
+    for (int c = 0; c < kc; ++c) {
+      tma_load_2d(smem_u32(s_p + c * P_CHUNK), &tm_p, bar, 64 * c, row0);
+      tma_load_2d(smem_u32(s_w + c * Tile<NP>::W_CHUNK), &tm_w, bar, 64 * c,
+                  col0);
     }
   }
+  mbar_wait(bar, 0);
+
+  const uint32_t p_s = smem_u32(s_p), w_s = smem_u32(s_w);
+  const int ks = k / 16;
+  const int wg = tid >> 7, wg_tid = tid & 127;
+  unsigned char* buf = s_o + wg * Tile<NP>::OUT_BYTES;
+  // the block's steps are blockIdx.z + i * gridDim.z; warpgroup wg takes
+  // i = wg, wg + 2, ...
+  float acc[NP / 2];
+#pragma unroll
+  for (int i = 0; i < NP / 2; ++i) acc[i] = 0.f;
+  for (int s = blockIdx.z + wg * gridDim.z; s < n_steps;
+       s += 2 * gridDim.z) {
+    wgmma_fence();
+    for (int i = 0; i < ks; ++i) {
+      const uint32_t off = (i & 3) * 32;  // 16 bf16 within the chunk
+      wgmma_bf16(acc, desc_sw128(p_s + (i >> 2) * P_CHUNK + off),
+                 desc_sw128(w_s + (i >> 2) * Tile<NP>::W_CHUNK + off), i > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    store_step<NP>(acc, buf, &tm_o, col0, row0, s, wg_tid, 1 + wg);
+  }
+  if (wg_tid == 0) bulk_wait<0>();
 }
 
-template <int NT>
-int launch(const void* p, const void* w, void* out, int m, int k, int n,
+template <int NP>
+int launch(const void* p, const void* wt, void* out, int m, int k, int n,
            int n_steps, cudaStream_t stream) {
-  constexpr int NP = NT * 8;
-  const int smem = (TM + NP) * (k + PAD) * 2;
+  const int kc = (k + 63) / 64;
+  const int smem = Tile<NP>::smem(kc);
   if (smem > MAX_SMEM) return -3;
-  auto kernel = matmul_probe_kernel<NT>;
+  CUtensorMap tm_p, tm_w, tm_o;
+  const uint64_t p_dims[2] = {(uint64_t)k, (uint64_t)m};
+  const uint64_t w_dims[2] = {(uint64_t)k, (uint64_t)n};
+  const uint64_t k_stride[1] = {(uint64_t)k * 2};
+  const uint32_t p_box[2] = {64, TM};
+  const uint32_t w_box[2] = {64, NP};
+  const uint64_t o_dims[3] = {(uint64_t)n, (uint64_t)m, (uint64_t)n_steps};
+  const uint64_t o_strides[2] = {(uint64_t)n * 2, (uint64_t)m * n * 2};
+  const uint32_t o_box[3] = {Tile<NP>::SW_OUT ? 64u : (uint32_t)NP, TM, 1};
+  int rc = make_tensor_map(&tm_p, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p,
+                           p_dims, k_stride, p_box,
+                           CU_TENSOR_MAP_SWIZZLE_128B);
+  if (rc == 0)
+    rc = make_tensor_map(&tm_w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, wt,
+                         w_dims, k_stride, w_box, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (rc == 0)
+    rc = make_tensor_map(&tm_o, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, out,
+                         o_dims, o_strides, o_box,
+                         Tile<NP>::SW_OUT ? CU_TENSOR_MAP_SWIZZLE_128B
+                                          : CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (rc != 0) return rc;
+  auto kernel = matmul_probe_kernel<NP>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -161,37 +202,36 @@ int launch(const void* p, const void* w, void* out, int m, int k, int n,
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return -3;
   const long long tiles = (long long)((m + TM - 1) / TM) * (n / NP);
-  // two waves of resident blocks, each block looping over its steps
-  long long splits = (2LL * sms * per_sm + tiles - 1) / tiles;
+  // one wave of resident blocks, each looping over its share of the steps
+  long long splits = (long long)sms * per_sm / tiles;
+  if (splits < 1) splits = 1;
   if (splits > n_steps) splits = n_steps;
   if (splits > 65535) splits = 65535;
   const dim3 grid((unsigned)((m + TM - 1) / TM), (unsigned)(n / NP),
                   (unsigned)splits);
-  kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(p),
-      static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(out),
-      m, k, n, n_steps);
+  kernel<<<grid, THREADS, smem, stream>>>(tm_p, tm_w, tm_o, k, n_steps);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// p (1, m, k), w (k, n) and out (n_steps, m, n): contiguous bfloat16, p
-// 16-byte aligned; m, k and n multiples of 16.  Returns the CUDA error code
-// of the launch, -2 for dimensions that are not multiples of 16, -3 for
-// sizes the kernel cannot take.
-extern "C" int occ_matmul_probe(const void* p, const void* w, void* out,
+// p (1, m, k), wt = w^T (n, k) and out (n_steps, m, n): contiguous
+// bfloat16, 16-byte aligned; m, k and n multiples of 16.  Returns the CUDA
+// error code of the launch, -2 for dimensions that are not multiples of
+// 16, -3 for sizes the kernel cannot take, -4/-5 if no tensor map could be
+// made (see hopper.cuh).
+extern "C" int occ_matmul_probe(const void* p, const void* wt, void* out,
                                 long long m, long long k, long long n,
                                 long long n_steps, cudaStream_t stream) {
   if (m % 16 || k % 16 || n % 16) return -2;
   if (m == 0 || k == 0 || n == 0 || n_steps == 0) return 0;
   if (m > 0x7fffffffLL || k > 0x7fffffffLL || n > 0x7fffffffLL ||
-      n_steps > 0x7fffffffLL || m * n_steps > 0x7fffffffffffLL ||
+      n_steps > 0x7fffffffLL || (m + TM - 1) / TM > 0x7fffffffLL ||
       n / 16 > 65535)
     return -3;
   const int mi = (int)m, ki = (int)k, ni = (int)n, si = (int)n_steps;
-  // 64- or 48-column panels at the probes' n (512, 48), else 16 columns
-  if (n % 64 == 0) return launch<8>(p, w, out, mi, ki, ni, si, stream);
-  if (n % 48 == 0) return launch<6>(p, w, out, mi, ki, ni, si, stream);
-  return launch<2>(p, w, out, mi, ki, ni, si, stream);
+  if (n % 128 == 0) return launch<128>(p, wt, out, mi, ki, ni, si, stream);
+  if (n % 64 == 0) return launch<64>(p, wt, out, mi, ki, ni, si, stream);
+  if (n % 48 == 0) return launch<48>(p, wt, out, mi, ki, ni, si, stream);
+  return launch<16>(p, wt, out, mi, ki, ni, si, stream);
 }

@@ -44,7 +44,14 @@ class Conv3x3Fast(Conv2d):
 
 
 class UpSampleBN(nn.Module):
-    """Upsample-to-skip + concat + 2x (conv3x3, BN, LeakyReLU)."""
+    """Upsample-to-skip + concat + 2x (conv3x3, BN, LeakyReLU).
+
+    Under `pallas` the block stays channels-last: the upsampled map (of a
+    channels-last map after the first block) and the encoder's small skip
+    are cat in channels-last memory, K3 returns NHWC memory and BN and
+    LeakyReLU keep the format, so each conv reads its input without a
+    transpose (K3's wrapper only pads Ci = 99 at 1_1 to 104).  The values
+    do not depend on the format."""
 
     def __init__(self, skip_input: int, out_f: int, conv_impl: str = "xla"):
         super().__init__()
@@ -57,7 +64,13 @@ class UpSampleBN(nn.Module):
 
     def forward(self, x, skip):
         up = resize_bilinear(x, skip.shape[-2:], align_corners=True)
-        return self._net(torch.cat([up, skip.to(up.dtype)], dim=1))
+        parts = [up, skip.to(up.dtype)]
+        if self._net[0].impl == "pallas":
+            # a cat of two channels-last maps is channels-last (a cat of
+            # mixed formats is a slow transposing copy into NCHW)
+            parts = [t.contiguous(memory_format=torch.channels_last)
+                     for t in parts]
+        return self._net(torch.cat(parts, dim=1))
 
 
 class Encoder(nn.Module):

@@ -2,10 +2,13 @@
 
 All `csrc/*.cu` sources compile with nvcc into one shared library with a
 plain C interface, loaded with ctypes: one nvcc per source, all started
-together, then one link.  The build runs at the first CUDA use, never at
-import, and is keyed by a hash of the sources and flags: a fresh checkout
-builds once into `build/kernels/` at the repo root (listed in .gitignore)
-and later processes reuse the library.
+together, then one link.  The sources share `csrc/hopper.cuh` (TMA tensor
+maps, mbarriers, wgmma); the libcuda entry point that encodes tensor maps
+is resolved at run time (dlsym), so the library links against the CUDA
+runtime alone.  The build runs at the first CUDA use, never at
+import, and is keyed by a hash of the sources, headers and flags: a fresh
+checkout builds once into `build/kernels/` at the repo root (listed in
+.gitignore) and later processes reuse the library.
 
 Each C entry point takes raw device pointers, sizes, strides and the CUDA
 stream, launches on that stream without synchronising, and returns
@@ -48,14 +51,20 @@ _SIGNATURES = {
     "occ_dw_filter_grad": (
         [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int] + [_I64] * 14 + [_P]
     ),
-    "occ_conv3x3": [_P, _P, _P, _P, ctypes.c_int] + [_I64] * 9 + [_P],
+    "occ_conv3x3": [_P, _P, _P, _P, ctypes.c_int] + [_I64] * 5 + [_P],
+    "occ_pack_nhwc": [_P, _P, ctypes.c_int] + [_I64] * 9 + [_P],
     "occ_row_gather": [_P, _P, _P, _I64, _I64, _I64, ctypes.c_int, _P],
     "occ_matmul_probe": [_P, _P, _P] + [_I64] * 4 + [_P],
+    "occ_hopper_selftest": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P],
 }
 
 
 def _sources():
     return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def _headers():
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
 
 
 def _nvcc() -> str:
@@ -89,7 +98,8 @@ def build() -> tuple:
     sources = _sources()
     if not sources:
         raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
-    lib_path = os.path.join(BUILD_DIR, f"libocc_kernels-{_digest(sources)}.so")
+    digest = _digest(sources + _headers())
+    lib_path = os.path.join(BUILD_DIR, f"libocc_kernels-{digest}.so")
     if os.path.exists(lib_path):
         return lib_path, 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -106,7 +116,8 @@ def build() -> tuple:
                  for cmd in cmds]
         outs = [proc.communicate()[0] for proc in procs]
         tmp = os.path.join(work, "lib.so")
-        link = [nvcc, "-shared", *NVCC_FLAGS[:2], "-o", tmp, *objs]
+        # -ldl: hopper.cuh resolves cuTensorMapEncodeTiled with dlsym
+        link = [nvcc, "-shared", *NVCC_FLAGS[:2], "-o", tmp, *objs, "-ldl"]
         runs = list(zip(cmds, [proc.returncode for proc in procs], outs))
         if all(rc == 0 for _, rc, _ in runs):
             proc = subprocess.run(link, stdout=subprocess.PIPE,

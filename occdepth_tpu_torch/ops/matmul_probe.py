@@ -8,7 +8,9 @@ pallas_matmul_probe`: with p (1, m, k), w (k, n) and n_steps steps,
 
 the products summed in float32 and rounded once; every operand bfloat16,
 m, k and n multiples of 16.  For CPU tensors `matmul_probe` runs the plain
-version; for CUDA tensors it launches the kernel or raises.
+version; for CUDA tensors it launches the kernel or raises.  The kernel
+reads both operands K-major through TMA, so the wrapper hands it w^T
+(n, k), one small copy per call that counts in the kernel's time.
 """
 from __future__ import annotations
 
@@ -52,8 +54,9 @@ def matmul_probe(p: torch.Tensor, w: torch.Tensor, n_steps: int) -> torch.Tensor
     _, m, k = p.shape
     n = w.shape[1]
     out = torch.empty((n_steps, m, n), dtype=torch.bfloat16, device=p.device)
+    wt = w.t().contiguous()
     rc = cuda_lib.library().occ_matmul_probe(
-        p.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n, n_steps,
+        p.data_ptr(), wt.data_ptr(), out.data_ptr(), m, k, n, n_steps,
         torch.cuda.current_stream(p.device).cuda_stream,
     )
     cuda_lib.check(rc, "matmul_probe")

@@ -12,8 +12,12 @@ import torch
 
 from occdepth_tpu_torch.ops.conv2d_shift import (
     conv3x3,
+    conv3x3_packed_reference,
     conv3x3_reference,
+    pack_conv3x3_weight,
+    padded_channels,
     resolve_conv_impl,
+    to_padded_channels_last,
 )
 from occdepth_tpu_torch.ops.crp_matmul import (
     crp_relation_matmul,
@@ -331,14 +335,83 @@ def test_resolve_conv_impl_matches_jax(impl, train):
     assert resolve_conv_impl(impl, train) == jax_resolve(impl, train)
 
 
+@pytest.mark.parametrize("shape", [(2, 11, 7, 13, 5), (2, 3, 5, 13, 24)],
+                         ids=["ci11", "ci3"])
+def test_conv3x3_packing_matches_plain_and_jax(shape):
+    """The wrapper's packing (channels padded to a multiple of 8 with
+    zeros, NHWC input, (Co, 3, 3, Cp) weight) and the plain conv of the
+    packed operands vs `conv3x3_reference` and the JAX package's
+    `conv3x3_shift`, fp32: sums of 9*Ci terms in another order, so 1e-5 *
+    max|ref|."""
+    jnp = pytest.importorskip("jax.numpy")
+    from occdepth_tpu.ops.conv2d_shift import conv3x3_shift
+
+    B, Ci, H, W, Co = shape
+    x, w, b = _conv_inputs(np.random.RandomState(Ci + Co), B, Ci, H, W, Co)
+    xt, wt, bt = (torch.from_numpy(a) for a in (x, w, b))
+    Cp = padded_channels(Ci)
+    assert Cp == {11: 16, 3: 8}[Ci]
+    ref = conv3x3_reference(xt, wt, bt)
+    jax_ref = np.asarray(conv3x3_shift(
+        jnp.asarray(x.transpose(0, 2, 3, 1)),
+        jnp.asarray(w.transpose(2, 3, 1, 0)), jnp.asarray(b)))
+    wp = pack_conv3x3_weight(wt)
+    assert wp.shape == (Co, 3, 3, Cp) and wp.is_contiguous()
+    assert torch.equal(wp[..., :Ci], wt.permute(0, 2, 3, 1))
+    assert not wp[..., Ci:].any()
+    for xin in (xt, xt.contiguous(memory_format=torch.channels_last)):
+        xp = to_padded_channels_last(xin)
+        assert xp.shape == (B, H, W, Cp) and xp.is_contiguous()
+        assert xp.data_ptr() % 16 == 0
+        assert torch.equal(xp[..., :Ci], xt.permute(0, 2, 3, 1))
+        assert not xp[..., Ci:].any()
+        out = conv3x3_packed_reference(xp, wp, bt, Ci)
+        assert out.shape == (B, Co, H, W)
+        assert out.is_contiguous(memory_format=torch.channels_last)
+        tol = 1e-5 * ref.abs().max().item()
+        assert (out - ref).abs().max().item() <= tol
+        assert np.abs(out.permute(0, 2, 3, 1).numpy() - jax_ref).max() <= tol
+    bad = xp.clone()
+    bad[..., -1] = 1.0  # a padded channel that is not zero
+    with pytest.raises(ValueError, match="not zero"):
+        conv3x3_packed_reference(bad, wp, bt, Ci)
+    # channels-last with Ci % 8 == 0: the packed input is x's own memory
+    x8 = torch.randn(2, 8, 3, 5).contiguous(memory_format=torch.channels_last)
+    assert to_padded_channels_last(x8).data_ptr() == x8.data_ptr()
+
+
+def test_upsample_bn_pallas_cpu_matches_shift():
+    """UpSampleBN under `pallas` on the CPU (K3's plain path) gives the
+    values of `shift` whatever the inputs' memory format."""
+    from occdepth_tpu_torch.models.unet2d import UpSampleBN
+
+    torch.manual_seed(0)
+    pal = UpSampleBN(10 + 6, 8, "pallas").eval()
+    shift = UpSampleBN(10 + 6, 8, "shift").eval()
+    shift.load_state_dict(pal.state_dict())
+    x, skip = torch.randn(2, 10, 4, 6), torch.randn(2, 6, 7, 11)
+    with torch.no_grad():
+        ref = shift(x, skip)
+        for fmt in (torch.contiguous_format, torch.channels_last):
+            out = pal(x.contiguous(memory_format=fmt),
+                      skip.contiguous(memory_format=fmt))
+            torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 99, 37, 70, 48), (1, 1672, 5, 77, 768),
-                                   (2, 16, 3, 130, 64), (1, 3, 1, 1, 5)])
+                                   (2, 16, 3, 130, 64), (1, 3, 1, 1, 5),
+                                   (2, 216, 11, 153, 96), (1, 99, 9, 77, 48),
+                                   (2, 384, 6, 153, 192)])
 def test_conv3x3_kernel_matches_plain(cuda_device, dtype, shape):
     """fp32 (TF32 off): sums in another order, 1e-4 * max|ref|; bf16: the
     plain version in fp32 on the same bf16 inputs, one bf16 rounding of
-    the output apart, 2^-7 * max|ref|."""
+    the output apart, 2^-7 * max|ref|.  The redesign's edges: W = 77 and
+    153 against the 16-column tile, Ci = 99 and 3 (padded channels), Ci =
+    216 and 1672 (a partial 64-channel chunk), Co = 5, 48, 64, 96, 192 and
+    768 (each column tile width, partly filled), NCHW and channels-last
+    inputs, with and without bias."""
     B, Ci, H, W, Co = shape
     g = torch.Generator(device=cuda_device).manual_seed(3)
     x = torch.randn(B, Ci, H, W, device=cuda_device, generator=g).to(dtype)
@@ -352,6 +425,7 @@ def test_conv3x3_kernel_matches_plain(cuda_device, dtype, shape):
     torch.cuda.synchronize()
     assert conv3x3.launches == before + 1
     assert out.dtype == dtype and out.shape == (B, Co, H, W)
+    assert out.is_contiguous(memory_format=torch.channels_last)
     tol = rtol * ref.abs().max().item()
     assert (out.float() - ref).abs().max().item() <= tol
     # channels-last input through its strides, and no bias
@@ -359,6 +433,22 @@ def test_conv3x3_kernel_matches_plain(cuda_device, dtype, shape):
     ref0 = conv3x3_reference(x.float(), w.float(), None)
     assert (conv3x3(xc, w, None).float() - ref0).abs().max().item() <= \
         rtol * ref0.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pack_kernel_matches_cpu_packing(cuda_device, dtype):
+    """K3's packing kernel (`to_padded_channels_last` on the card) equals
+    the CPU packing bit for bit: NCHW, channels-last with C % 8 != 0, a
+    strided view, and more than one 64-pixel x 64-channel tile."""
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    x = torch.randn(2, 99, 37, 70, device=cuda_device, generator=g).to(dtype)
+    for xin in (x, x.contiguous(memory_format=torch.channels_last),
+                x[:, 3:80, 1::2, ::3], x[:1, :8]):
+        out = to_padded_channels_last(xin)
+        ref = to_padded_channels_last(xin.cpu())
+        assert out.is_contiguous() and out.data_ptr() % 16 == 0
+        assert torch.equal(out.cpu(), ref)
 
 
 @pytest.mark.cuda
@@ -418,11 +508,13 @@ def test_row_gather_raises_on_unsupported_input(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(64, 48, 16, 3), (32, 144, 48, 2),
                                    (16, 512, 64, 2), (80, 80, 80, 5),
-                                   (8192, 432, 16, 4), (2048, 512, 512, 2)])
+                                   (8192, 432, 16, 4), (8192, 144, 48, 3),
+                                   (2048, 512, 512, 2)])
 def test_matmul_probe_kernel_matches_plain(cuda_device, shape):
     """One bf16 rounding of fp32 sums taken in another order: 2^-7 *
     max|ref|.  (80, 80, 80) takes a partial row tile and 16-column panels;
-    the last two are the head probes' im2col and lanefold shapes."""
+    the last three are the head probes' im2col, dzpack and lanefold
+    shapes (128-, 48- and 16-column panels, k not a multiple of 64)."""
     m, k, n, steps = shape
     g = torch.Generator(device=cuda_device).manual_seed(7)
     p = torch.randn(1, m, k, device=cuda_device, generator=g).bfloat16()
@@ -447,3 +539,39 @@ def test_matmul_probe_raises_on_unsupported_input(cuda_device):
         matmul_probe(p[:, :24], w, 2)  # m not a multiple of 16
     with pytest.raises(ValueError):
         matmul_probe(p.transpose(1, 2), w, 2)  # p not contiguous
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift,group_rows", [(0, 8), (3, 8), (0, 24),
+                                              (1, 24), (2, 24)])
+def test_hopper_helpers_tma_swizzle_and_wgmma(cuda_device, shift,
+                                              group_rows):
+    """csrc/hopper.cuh on its own: one TMA load of an (8 g + 8) x 64 bf16
+    tile lands 128B-swizzled (row r's 16-byte chunk c at chunk c ^ (r %
+    8)), bit for bit, and one wgmma m64n16 product over k = 64 whose A
+    operand starts `shift` rows into the tile with its 8-row groups g rows
+    apart (conv3x3's halo reads: shifts 0-2, g = 24) matches the float32
+    product (exact bf16 products, sums of 64 in another order: 1e-5 *
+    max|ref|)."""
+    from occdepth_tpu_torch.ops import cuda_lib
+
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    a = torch.randn(8 * group_rows + 8, 64, device=cuda_device,
+                    generator=g).bfloat16()
+    b = torch.randn(16, 64, device=cuda_device, generator=g).bfloat16()
+    dump = torch.empty(64, 64, dtype=torch.bfloat16, device=cuda_device)
+    d = torch.empty(64, 16, device=cuda_device)
+    rc = cuda_lib.library().occ_hopper_selftest(
+        a.data_ptr(), b.data_ptr(), dump.data_ptr(), d.data_ptr(), shift,
+        group_rows, torch.cuda.current_stream(cuda_device).cuda_stream)
+    cuda_lib.check(rc, "hopper_selftest")
+    torch.cuda.synchronize()
+    r = torch.arange(64)[:, None]
+    c = torch.arange(8)[None, :]
+    expect = torch.empty(64, 8, 8, dtype=torch.bfloat16)
+    expect[r, c ^ (r % 8)] = a[:64].cpu().view(64, 8, 8)[r, c]
+    assert torch.equal(dump.cpu().view(torch.int16),
+                       expect.view(64, 64).view(torch.int16))
+    m = torch.arange(64, device=cuda_device)
+    ref = a[(m // 8) * group_rows + shift + m % 8].float() @ b.float().t()
+    assert (d - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
