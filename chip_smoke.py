@@ -5,24 +5,42 @@
 Phases, one line each:
   1. environment: torch/CUDA versions, GPU name and power limit;
   2. builds the CUDA kernels from occdepth_tpu_torch/csrc with nvcc;
-  3. K1 stereo_cosine_fuse vs its plain PyTorch version at the main
-     path's shape (batch 2 x 262,144 voxel rows, C=32, two strided views
-     of one fp32 tensor, masks ~30% zero), with CUDA-event times;
-  4. K2 crp_relation_matmul vs its plain version at the main path's shape
-     (batch 2, N=4096, M=512, C=256, transposed operand views), in bf16
-     and fp32, with CUDA-event times;
+  3. K1 stereo_cosine_fuse vs its plain PyTorch version at the lift's
+     shape (batch 2 x 262,144 voxel rows, C=32, two strided views of one
+     fp32 tensor, masks ~30% zero), with device times (CUDA-graph
+     replays); the model's paths no longer run it (3b fuses it);
+ 3b. the fused lift flosp_stereo_lift (gather, K1's fusion and the sum
+     over scales in one kernel) vs its plain version at the serving shape
+     (batch 2, 262,144 voxels, C=32, maps at 1_1..1_8 of a 370x1220
+     image, P=1): bf16 and fp32 maps, NCHW and channels-last, on points
+     with every edge case (each map's last row and column, out of FOV,
+     voxels seen by one view), a P=4 case at 32,768 voxels, and the
+     serving rig's own projection; device times of the kernel (NCHW maps,
+     so its channels-last copies are timed, and channels-last maps), the
+     plain version, today's per-scale path (index_select + K1 per scale)
+     as its yardstick, and the bytes bound (coordinates, masks, each
+     distinct gathered row once, the output once);
+  4. K2 crp_relation_matmul vs its plain version at the CRP's shape, the
+     four relations in one call (batch 2, R=4, N=4096, M=512, C=256, the
+     model's transposed operand views), in bf16 (wgmma) and fp32 (SIMT),
+     with device times (CUDA-graph replays) and the bound;
   5. the tiny KITTI config's forward on CUDA (kernels) held to the same
-     forward on the CPU (plain versions), fp32 with TF32 off;
+     forward on the CPU (plain versions), fp32 with TF32 off: the fused
+     lift and K2 launch once, the standalone K1 never;
   6. the serving path: ServingPipeline at the flagship KITTI stereo config
      (b3, feature 32, 370x1220 stereo, 256x256x32 grid, 20 classes, bf16,
      seeded random weights) serves 5 frames at batch size 2; the kernels'
-     launch counters, set to 0 just before, must grow over that run;
+     launch counters, set to 0 just before, must grow over that run (the
+     fused lift and K2 once per dispatch); the device time of sfa_lift and
+     of the CRP block per dispatch (CUDA events,
+     scripts/profile_serve_stages.py's hooks);
   7. K4 dw_filter_grad vs its plain version at every stride-1 depthwise
      shape of the flagship encoder (batch 1), in bf16 and fp32, with the
      device times (CUDA-graph replays) of K4, the plain version and cuDNN's
      weight gradient (aten.convolution_backward), and the bytes bound;
-  8. autograd through K1 and K2 on the card at the train path's shapes:
-     their autograd Functions' gradients vs autograd of the plain versions;
+  8. autograd through K1, the fused lift and K2 (its four relations in
+     one call) on the card at the train path's shapes: their autograd
+     Functions' gradients vs autograd of the plain versions;
   9. one tiny-config train step (fp32, TF32 off) on CUDA (kernels) vs the
      CPU (plain versions): loss terms, gradients, running statistics and
      updated parameters, within the fp32-noise-aware bounds of
@@ -32,9 +50,10 @@ Phases, one line each:
      labelled synthetic dataset, validating on a 1-sample one at each
      epoch end (counters set to 0 just before); every loss term finite,
      parameters changed, K4 launched once per stride-1 depthwise conv of
-     view 0 per step, K1 and K2 4 times per step and per validation
-     forward; val/mIoU logged, best_val_mIoU kept; metrics.jsonl written;
-     a second Trainer resumes at step 3;
+     view 0 per step, the fused lift and K2 once per step and per
+     validation forward, the standalone K1 never; val/mIoU logged,
+     best_val_mIoU kept; metrics.jsonl written; a second Trainer resumes
+     at step 3;
  11. K3 conv3x3 (implicit GEMM on 128-pixel tiles: in bf16 one TMA halo
      load per 64 channels read by shifted descriptors for the nine taps,
      wgmma on two consumer warpgroups; in fp32 TMA-staged taps and SIMT
@@ -51,6 +70,7 @@ Phases, one line each:
      `evaluate` at batch 2 (a ragged last batch) in fp32 (TF32 off) with
      decoder_conv_impl=xla and =pallas (counters set to 0 just before
      each): K3 launched 20 times under pallas and never under xla, the
+     fused lift and K2 once per batch under both, the
      confusion counts of the two within 1e-5 of the counted voxels, the
      padding counting 3 frames; then, after one untimed bf16 pass of
      each, bf16 ms/frame of xla and pallas in turns, and the eval CLI as a
@@ -98,7 +118,11 @@ from occdepth_tpu_torch.scripts.bench_timing import (
 )
 
 K1_TOL = 1e-5  # fp32 row sums of 32 terms in another order
+LIFT_TOL = 1e-5  # as K1, and fp32 sums of 4 scales (and of P points) reordered
+LIFT_SCALES = (1, 2, 4, 8)  # the flagship's project_res
 K2_RTOL = 2e-5  # fp32 sums of 512 terms in another order, x max|ref|
+# (the bf16 wgmma kernel's split sigmoid adds 2^-18 relative per term)
+K2_RELATIONS = 4
 TINY_ATOL = 1e-3  # fp32 CUDA (cuDNN, TF32 off) vs CPU sums over a whole net
 N_FRAMES, BATCH = 5, 2
 K4_RTOL = 1e-4  # x max|ref|: fp32 sums of up to 113k terms in another order
@@ -143,6 +167,210 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke: {what}")
+
+
+def phase_k1(dev) -> dict:
+    """3. The standalone K1 vs its plain version at the lift's shape."""
+    import torch
+
+    from occdepth_tpu_torch.ops.stereo_fuse import (
+        stereo_cosine_fuse,
+        stereo_cosine_fuse_reference,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    N, C = 128 * 128 * 16, 32
+    valid = (torch.rand(BATCH, 2, N, device=dev, generator=g) > 0.3).float()
+    feats = torch.randn(BATCH, 2, N, C, device=dev,
+                        generator=g) * valid[..., None]
+    args = (feats[:, 0], feats[:, 1], valid[:, 0], valid[:, 1])
+    err = (stereo_cosine_fuse(*args)
+           - stereo_cosine_fuse_reference(*args)).abs().max().item()
+    ms = device_ms(lambda: stereo_cosine_fuse(*args))
+    plain = device_ms(lambda: stereo_cosine_fuse_reference(*args))
+    b_ms, kind = bound_ms(3 * BATCH * N * C * 4 + 2 * BATCH * N * 4,
+                          6 * BATCH * N * C, FP32_FLOPS)
+    log("k1", shape=f"({BATCH},{N},{C})x2", max_abs_err=err, tol=K1_TOL,
+        ms=f"{ms:.5f}", plain_ms=f"{plain:.5f}", bound_ms=f"{b_ms:.5f}",
+        bound_by=kind, bound_share=f"{b_ms / ms:.3f}")
+    check(err <= K1_TOL, f"K1 error {err} > {K1_TOL}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": kind}
+
+
+def lift_maps(dev, dtype, layout, B, C, hw, seed):
+    """Seeded random (B, 2, C, h, w) maps of the four scales of an hw =
+    (H, W) image on the card, in `dtype` and `layout` ("nchw" or
+    "channels_last")."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    H, W = hw
+    maps = []
+    for s in LIFT_SCALES:
+        m = torch.randn(B, 2, -(-H // s), -(-W // s), C, device=dev,
+                        generator=g).to(dtype).permute(0, 1, 4, 2, 3)
+        maps.append(m.contiguous() if layout == "nchw" else m)
+    return maps
+
+
+def per_scale_lift(maps, pix, fov, scales):
+    """The lift as it ran before the fused kernel, its yardstick: per
+    scale flosp_gather_flat (index_select) then the standalone K1, summed."""
+    from occdepth_tpu_torch.ops.flosp_gather import (
+        flosp_gather_flat,
+        multiview_cosine_fuse,
+    )
+
+    x3d = None
+    for x2d, s in zip(maps, scales):
+        feats, valid = flosp_gather_flat(x2d, pix // s if s > 1 else pix, fov)
+        fused = multiview_cosine_fuse(feats, valid)
+        x3d = fused if x3d is None else x3d + fused
+    return x3d
+
+
+def lift_bytes(maps, pix, fov, scales) -> int:
+    """What the fused lift must move on these inputs: the coordinates and
+    masks once, each distinct (batch, view, scale) row that an in-FOV point
+    names once, the fp32 output once."""
+    import torch
+
+    B, V, C = maps[0].shape[:3]
+    n = pix.numel() * pix.element_size() + fov.numel()
+    for m, s in zip(maps, scales):
+        h, w = m.shape[3:]
+        p = pix // s if s > 1 else pix
+        idx = (p[..., 1].long() * w + p[..., 0]
+               + torch.arange(B * V, device=p.device).view(B, V, 1, 1)
+               * (h * w + 1))
+        n += torch.unique(idx[fov]).numel() * C * m.element_size()
+    return n + B * pix.shape[2] * C * 4
+
+
+def phase_lift(dev, calib, hw) -> dict:
+    """3b. The fused lift vs its plain version at the serving shape: the
+    rig's N voxels (calib's projection) of an hw = (H, W) image."""
+    import torch
+
+    from occdepth_tpu_torch.ops.flosp_gather import (
+        flosp_stereo_lift,
+        flosp_stereo_lift_reference,
+    )
+    from occdepth_tpu_torch.testing import lift_points
+
+    C, N = 32, calib["projected_pix"].shape[2]
+    rng = np.random.RandomState(3)
+    edge_pts = [torch.from_numpy(a).to(dev)
+                for a in lift_points(rng, BATCH, N, 1, hw)]
+    p4_pts = [torch.from_numpy(a).to(dev)
+              for a in lift_points(rng, BATCH, N // 8, 4, hw)]
+    # the serving rig's own projection, as the pipeline broadcasts it
+    rig = [torch.from_numpy(np.broadcast_to(
+        calib[k][:1], (BATCH,) + calib[k].shape[1:]).copy()).to(dev)
+        for k in ("projected_pix", "fov_mask")]
+    check(tuple(rig[0].shape) == (BATCH, 2, N, 1, 2),
+          f"rig projection {tuple(rig[0].shape)}")
+    max_err = 0.0
+    cases = [(dt, lay, "edges", edge_pts)
+             for dt in (torch.bfloat16, torch.float32)
+             for lay in ("nchw", "channels_last")]
+    cases += [(torch.bfloat16, "nchw", "p4", p4_pts),
+              (torch.float32, "channels_last", "p4", p4_pts),
+              (torch.bfloat16, "nchw", "rig", rig)]
+    for i, (dtype, layout, name, (pix, fov)) in enumerate(cases):
+        maps = lift_maps(dev, dtype, layout, BATCH, C, hw, seed=i)
+        out = flosp_stereo_lift(maps, pix, fov, LIFT_SCALES)
+        ref = flosp_stereo_lift_reference(maps, pix, fov, LIFT_SCALES)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        log("lift_check", points=name, dtype=str(dtype).replace("torch.", ""),
+            layout=layout, shape=f"({BATCH},{pix.shape[2]},P{pix.shape[3]},"
+            f"{C})", max_abs_err=err, tol=LIFT_TOL)
+        check(err <= LIFT_TOL, f"fused lift {name} {dtype} {layout} error "
+                               f"{err} > {LIFT_TOL}")
+        max_err = max(max_err, err)
+        del maps, out, ref
+    # times at the serving path's inputs: bf16 maps, the rig's projection
+    pix, fov = rig
+    res = {"max_abs_err": max_err}
+    maps = lift_maps(dev, torch.bfloat16, "nchw", BATCH, C, hw, seed=9)
+    maps_cl = [m.permute(0, 1, 3, 4, 2).contiguous().permute(0, 1, 4, 2, 3)
+               for m in maps]
+    for layout, ms_maps in (("nchw", maps), ("channels_last", maps_cl)):
+        res[layout] = device_ms(
+            lambda: flosp_stereo_lift(ms_maps, pix, fov, LIFT_SCALES))
+    res["plain_ms"] = device_ms(
+        lambda: flosp_stereo_lift_reference(maps, pix, fov, LIFT_SCALES))
+    res["yardstick_ms"] = device_ms(
+        lambda: per_scale_lift(maps, pix, fov, LIFT_SCALES))
+    res["ms"] = res["nchw"]
+    n_bytes = lift_bytes(maps, pix, fov, LIFT_SCALES)
+    res["bound_ms"], res["bound_by"] = bound_ms(n_bytes, 0, FP32_FLOPS)
+    log("lift", shape=f"({BATCH},{N},P1,{C}) bf16 rig projection",
+        ms_nchw=f"{res['nchw']:.5f}",
+        ms_channels_last=f"{res['channels_last']:.5f}",
+        plain_ms=f"{res['plain_ms']:.5f}",
+        yardstick_ms=f"{res['yardstick_ms']:.5f}", bytes=n_bytes,
+        bound_ms=f"{res['bound_ms']:.5f}", bound_by=res["bound_by"],
+        bound_share=f"{res['bound_ms'] / res['ms']:.3f}",
+        max_abs_err=max_err)
+    check(res["channels_last"] >= res["bound_ms"],
+          f"fused lift took {res['channels_last']} ms, under its bound "
+          f"{res['bound_ms']}: work was skipped")
+    check(res["ms"] < res["yardstick_ms"],
+          f"fused lift {res['ms']} ms, not faster than the per-scale path "
+          f"{res['yardstick_ms']}")
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_k2(dev) -> dict:
+    """4. K2, the four relations in one call, vs its plain version."""
+    import torch
+
+    from occdepth_tpu_torch.ops.crp_matmul import (
+        crp_relation_matmul,
+        crp_relation_matmul_reference,
+        wgmma_path,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    R, Nv, M, Cc = K2_RELATIONS, 4096, 512, 256
+    res = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        logits = torch.randn(BATCH, R, M, Nv, device=dev,
+                             generator=g).to(dtype)
+        mega = torch.randn(BATCH, Cc, M, device=dev, generator=g).to(dtype)
+        args = (logits.transpose(2, 3), mega.transpose(1, 2))
+        path = "wgmma" if wgmma_path(*args) else "simt"
+        check(path == ("wgmma" if dtype == torch.bfloat16 else "simt"),
+              f"K2 {name} took the {path} kernel")
+        ref = crp_relation_matmul_reference(*args)
+        err = (crp_relation_matmul(*args) - ref).abs().max().item()
+        tol = K2_RTOL * ref.abs().max().item()
+        ms = device_ms(lambda: crp_relation_matmul(*args))
+        plain = device_ms(lambda: crp_relation_matmul_reference(*args))
+        es = logits.element_size()
+        b_ms, kind = bound_ms(
+            BATCH * (R * Nv * M * es + M * Cc * es + R * Nv * Cc * 4),
+            2 * BATCH * R * Nv * M * Cc,
+            BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
+        log("k2", dtype=name, kernel=path,
+            shape=f"{BATCH}x{R}x({Nv},{M})@({M},{Cc})", max_abs_err=err,
+            tol=f"{tol:.3e}", ms=f"{ms:.5f}", plain_ms=f"{plain:.5f}",
+            bound_ms=f"{b_ms:.5f}", bound_by=kind,
+            bound_share=f"{b_ms / ms:.3f}")
+        check(err <= tol, f"K2 {name} error {err} > {tol}")
+        check(ms >= b_ms, f"K2 {name} took {ms} ms, under its bound {b_ms}")
+        if dtype == torch.bfloat16:  # the main path's; fp32 stays SIMT
+            check(ms < plain, f"K2 bf16 {ms} ms, not faster than its plain "
+                              f"version {plain}")
+        res[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                     "bound_ms": b_ms, "bound_by": kind}
+        del logits, mega, ref
+    return res
 
 
 def flagship_dw_shapes(dev) -> list:
@@ -223,9 +451,10 @@ def phase_k4(dev) -> dict:
                 bound_by="bytes" if bound_kinds == {"bytes"} else "operations")
 
 
-def phase_autograd(dev) -> None:
-    """8. Gradients through the K1/K2 autograd Functions on the card vs
-    autograd of the plain versions, at the train path's shapes."""
+def phase_autograd(dev, calib, hw) -> None:
+    """8. Gradients through the K1, fused-lift and K2 autograd Functions on
+    the card vs autograd of the plain versions, at the train path's
+    shapes."""
     import torch
 
     from occdepth_tpu_torch.ops.crp_matmul import (
@@ -257,24 +486,46 @@ def phase_autograd(dev) -> None:
     log("k1_grad", shape=f"(1,{N},{C})x2", max_abs_err=err, tol=K1_GRAD_TOL)
     check(err <= K1_GRAD_TOL, f"K1 gradient error {err}")
 
-    # K2: (B=1, M, N) logits and (B=1, C, M) mega read transposed, as the
-    # CRP passes them
+    # the fused lift: gradients w.r.t. the four maps (fp32, batch 1), on the
+    # flagship rig's projection as the train step passes it
+    from occdepth_tpu_torch.ops.flosp_gather import (
+        flosp_stereo_lift,
+        flosp_stereo_lift_reference,
+    )
+
+    pix, fov = (torch.from_numpy(calib[k][:1]).to(dev)
+                for k in ("projected_pix", "fov_mask"))
+    maps = [m.requires_grad_() for m in lift_maps(
+        dev, torch.float32, "nchw", 1, C, hw, seed=8)]
+    cot = torch.randn(1, pix.shape[2], C, device=dev, generator=g)
+    args = (maps, pix, fov, LIFT_SCALES)
+    gk = grads(flosp_stereo_lift, maps, args, cot)
+    gr = grads(flosp_stereo_lift_reference, maps, args, cot)
+    err = max((a - b).abs().max().item() for a, b in zip(gk, gr))
+    log("lift_grad", shape=f"(1,{pix.shape[2]},{C}) 4 maps fp32",
+        max_abs_err=err, tol=K1_GRAD_TOL)
+    check(err <= K1_GRAD_TOL, f"fused lift gradient error {err}")
+    del maps, gk, gr
+
+    # K2: (B=1, R, M, N) logits and (B=1, C, M) mega read transposed, the
+    # four relations in one call, as the CRP passes them
     Nv, M, Cc = 4096, 512, 256
     for dtype, rtol in ((torch.float32, K2_GRAD_RTOL),
                         (torch.bfloat16, K2_GRAD_BF16_RTOL)):
-        logits = torch.randn(1, M, Nv, device=dev, generator=g).to(dtype)
+        logits = torch.randn(1, K2_RELATIONS, M, Nv, device=dev,
+                             generator=g).to(dtype)
         mega = torch.randn(1, Cc, M, device=dev, generator=g).to(dtype)
         logits.requires_grad_()
         mega.requires_grad_()
-        cot = torch.randn(1, Nv, Cc, device=dev, generator=g)
-        args = (logits.transpose(1, 2), mega.transpose(1, 2))
+        cot = torch.randn(1, K2_RELATIONS, Nv, Cc, device=dev, generator=g)
+        args = (logits.transpose(2, 3), mega.transpose(1, 2))
         gk = grads(crp_relation_matmul, [logits, mega], args, cot)
         gr = grads(crp_relation_matmul_reference, [logits, mega], args, cot)
         for name, a, b in zip(("dP", "dmega"), gk, gr):
             err = (a.float() - b.float()).abs().max().item()
             tol = rtol * b.float().abs().max().item()
             log("k2_grad", dtype=str(dtype).replace("torch.", ""), wrt=name,
-                max_abs_err=err, tol=f"{tol:.3e}")
+                relations=K2_RELATIONS, max_abs_err=err, tol=f"{tol:.3e}")
             check(err <= tol, f"K2 {dtype} {name} gradient error {err} > {tol}")
 
 
@@ -286,6 +537,7 @@ def phase_tiny_train(dev) -> dict:
     from occdepth_tpu_torch.models import OccDepthModel
     from occdepth_tpu_torch.ops.crp_matmul import crp_relation_matmul
     from occdepth_tpu_torch.ops.dw_conv import dw_filter_grad
+    from occdepth_tpu_torch.ops.flosp_gather import flosp_stereo_lift
     from occdepth_tpu_torch.ops.stereo_fuse import stereo_cosine_fuse
     from occdepth_tpu_torch.testing import (
         count_flips,
@@ -318,12 +570,11 @@ def phase_tiny_train(dev) -> dict:
     cpu_model = randomize_weights(OccDepthModel(cfg), seed=1)
     gpu_models = [copy.deepcopy(cpu_model)] + [
         perturbed_copy(cpu_model, s) for s in range(N_PERTURB)]
-    counts0 = (stereo_cosine_fuse.launches, crp_relation_matmul.launches,
-               dw_filter_grad.launches)
+    counted = (flosp_stereo_lift, crp_relation_matmul, dw_filter_grad,
+               stereo_cosine_fuse)
+    counts0 = [fn.launches for fn in counted]
     cuda_runs = [step(m, dev) for m in gpu_models]
-    launches = [c1 - c0 for c0, c1 in zip(counts0, (
-        stereo_cosine_fuse.launches, crp_relation_matmul.launches,
-        dw_filter_grad.launches))]
+    launches = [fn.launches - c0 for fn, c0 in zip(counted, counts0)]
     ref = step(cpu_model, "cpu")
     ours, noise = cuda_runs[0], cuda_runs[1:]
 
@@ -338,14 +589,16 @@ def phase_tiny_train(dev) -> dict:
         grad_worst=f"{worst['grads'][0]:.3f}:{worst['grads'][1]}",
         stats_worst=f"{worst['stats'][0]:.3f}:{worst['stats'][1]}",
         update_flips=flips, noise_flips=flips_noise,
-        k1_launches=launches[0], k2_launches=launches[1],
-        k4_launches=launches[2])
+        lift_launches=launches[0], k2_launches=launches[1],
+        k4_launches=launches[2], k1_launches=launches[3])
     check(loss_err <= LOSS_RTOL, f"tiny train loss error {loss_err}")
     for name, w in worst.items():
         check(w[0] <= 1.0, f"tiny train {name}: {w}")
     check(flips <= FLIP_MULT * max(flips_noise, 1),
           f"tiny train update flips {flips} vs noise {flips_noise}")
-    check(min(launches) > 0, f"tiny train launches {launches}")
+    check(launches[0] == launches[1] == len(cuda_runs) and launches[2] > 0
+          and launches[3] == 0, f"tiny train launches {launches} (lift, "
+          "K2 once per step, K4, standalone K1 never)")
     return {"loss_rel_err": loss_err}
 
 
@@ -354,11 +607,13 @@ def kernel_counters() -> dict:
     from occdepth_tpu_torch.ops.conv2d_shift import conv3x3
     from occdepth_tpu_torch.ops.crp_matmul import crp_relation_matmul
     from occdepth_tpu_torch.ops.dw_conv import dw_filter_grad
+    from occdepth_tpu_torch.ops.flosp_gather import flosp_stereo_lift
     from occdepth_tpu_torch.ops.matmul_probe import matmul_probe
     from occdepth_tpu_torch.ops.row_gather import row_gather
     from occdepth_tpu_torch.ops.stereo_fuse import stereo_cosine_fuse
 
     return {"stereo_cosine_fuse": stereo_cosine_fuse,
+            "flosp_stereo_lift": flosp_stereo_lift,
             "crp_relation_matmul": crp_relation_matmul,
             "conv3x3": conv3x3, "dw_filter_grad": dw_filter_grad,
             "row_gather": row_gather, "matmul_probe": matmul_probe}
@@ -430,6 +685,7 @@ def phase_train(dev, smi: str) -> dict:
             ms_per_step_2_3=f"{ms_step:.2f}",
             peak_mem_gib=f"{peak / 2**30:.3f}", gpu=repr(smi),
             dw_convs=n_dw, params_changed=f"{changed}/{len(trained)}",
+            lift_launches=launches["flosp_stereo_lift"],
             k1_launches=launches["stereo_cosine_fuse"],
             k2_launches=launches["crp_relation_matmul"],
             k4_launches=launches["dw_filter_grad"],
@@ -452,10 +708,11 @@ def phase_train(dev, smi: str) -> dict:
         check(launches["dw_filter_grad"] == n_dw * TRAIN_STEPS,
               f"K4 launches {launches['dw_filter_grad']}")
         forwards = TRAIN_STEPS + n_val_forwards
-        check(launches["stereo_cosine_fuse"]
-              == len(cfg.project_res) * forwards,
+        check(launches["flosp_stereo_lift"] == forwards,
+              f"fused lift launches {launches['flosp_stereo_lift']}")
+        check(launches["stereo_cosine_fuse"] == 0,
               f"K1 launches {launches['stereo_cosine_fuse']}")
-        check(launches["crp_relation_matmul"] == cfg.n_relations * forwards,
+        check(launches["crp_relation_matmul"] == forwards,
               f"K2 launches {launches['crp_relation_matmul']}")
         check(launches["conv3x3"] == 0, "training ran K3")
         check(any("train/mIoU" in r for r in records), "no train/mIoU record")
@@ -633,6 +890,12 @@ def phase_eval(dev, smi: str) -> dict:
         check(launches["pallas"]["conv3x3"] == 10 * n_batches,
               f"K3 launched {launches['pallas']['conv3x3']} times under pallas")
         check(launches["xla"]["conv3x3"] == 0, "K3 launched under xla")
+        for impl, n in launches.items():
+            check(n["flosp_stereo_lift"] == n["crp_relation_matmul"]
+                  == n_batches and n["stereo_cosine_fuse"] == 0,
+                  f"{impl}: lift/K2/K1 launches {n['flosp_stereo_lift']}/"
+                  f"{n['crp_relation_matmul']}/{n['stereo_cosine_fuse']} for "
+                  f"{n_batches} batches")
         for impl, st in runs.items():
             check(st["n_frames"] == EVAL_FRAMES,
                   f"{impl}: {st['n_frames']} frames counted")
@@ -900,19 +1163,14 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
-    from occdepth_tpu_torch.config import default_config_path, load_config
     from occdepth_tpu_torch.data.batch import make_synthetic_batch
     from occdepth_tpu_torch.models import OccDepthModel
     from occdepth_tpu_torch.ops import cuda_lib
-    from occdepth_tpu_torch.ops.crp_matmul import (
-        crp_relation_matmul,
-        crp_relation_matmul_reference,
+    from occdepth_tpu_torch.scripts.profile_serve_stages import (
+        serving_setup,
+        stage_events,
+        stage_ms,
     )
-    from occdepth_tpu_torch.ops.stereo_fuse import (
-        stereo_cosine_fuse,
-        stereo_cosine_fuse_reference,
-    )
-    from occdepth_tpu_torch.serving import ServingPipeline
     from occdepth_tpu_torch.testing import randomize_weights, tiny_kitti_config
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -928,70 +1186,37 @@ def main() -> None:
     log("build", seconds=f"{build_s:.2f}",
         cached=build_s == 0.0, library=lib_path)
 
-    # ---- 3. K1 at the main path's shape ----
-    g = torch.Generator(device=dev).manual_seed(0)
-    N, C = 128 * 128 * 16, 32
-    valid = (torch.rand(BATCH, 2, N, device=dev, generator=g) > 0.3).float()
-    feats = torch.randn(BATCH, 2, N, C, device=dev,
-                        generator=g) * valid[..., None]
-    k1_args = (feats[:, 0], feats[:, 1], valid[:, 0], valid[:, 1])
-    k1_err = (stereo_cosine_fuse(*k1_args)
-              - stereo_cosine_fuse_reference(*k1_args)).abs().max().item()
-    k1_ms = cuda_ms(lambda: stereo_cosine_fuse(*k1_args))
-    k1_plain_ms = cuda_ms(lambda: stereo_cosine_fuse_reference(*k1_args))
-    log("k1", shape=f"({BATCH},{N},{C})x2", max_abs_err=k1_err, tol=K1_TOL,
-        ms=f"{k1_ms:.4f}", plain_ms=f"{k1_plain_ms:.4f}")
-    check(k1_err <= K1_TOL, f"K1 error {k1_err} > {K1_TOL}")
-
-    # ---- 4. K2 at the main path's shape, operands laid out as in the model ----
-    Nv, M, Cc = 4096, 512, 256
-    k2 = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        logits = torch.randn(BATCH, M, Nv, device=dev, generator=g).to(dtype)
-        mega = torch.randn(BATCH, Cc, M, device=dev, generator=g).to(dtype)
-        args = (logits.transpose(1, 2), mega.transpose(1, 2))
-        ref = crp_relation_matmul_reference(*args)
-        err = (crp_relation_matmul(*args) - ref).abs().max().item()
-        tol = K2_RTOL * ref.abs().max().item()
-        ms = cuda_ms(lambda: crp_relation_matmul(*args))
-        plain_ms = cuda_ms(lambda: crp_relation_matmul_reference(*args))
-        k2[dtype] = (err, ms, plain_ms)
-        log("k2", dtype=str(dtype).replace("torch.", ""),
-            shape=f"{BATCH}x({Nv},{M})@({M},{Cc})", max_abs_err=err,
-            tol=f"{tol:.3e}", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}")
-        check(err <= tol, f"K2 {dtype} error {err} > {tol}")
+    # ---- 3, 3b, 4. K1, the fused lift and K2 at the main path's shapes ----
+    cfg, pipe, calib = serving_setup(BATCH)
+    k1 = phase_k1(dev)
+    lift = phase_lift(dev, calib, cfg.img_shape)
+    k2 = phase_k2(dev)
 
     # ---- 5. tiny config: CUDA (kernels) vs CPU (plain versions) ----
     tcfg = tiny_kitti_config()
     cpu_model = randomize_weights(OccDepthModel(tcfg), seed=1).eval()
     gpu_model = copy.deepcopy(cpu_model).to(dev)
     tbatch = make_synthetic_batch(tcfg, batch_size=2, seed=3)
-    before = (stereo_cosine_fuse.launches, crp_relation_matmul.launches)
+    reset_counts()
     with torch.inference_mode():
         out_cpu = cpu_model({k: torch.from_numpy(v) for k, v in tbatch.items()})
         out_gpu = gpu_model({k: torch.from_numpy(v).to(dev)
                              for k, v in tbatch.items()})
     tiny_err = max((out_gpu[k].cpu() - out_cpu[k]).abs().max().item()
                    for k in out_cpu)
-    tiny_launches = (stereo_cosine_fuse.launches - before[0],
-                     crp_relation_matmul.launches - before[1])
+    tiny_launches = read_counts()
     log("tiny", keys=",".join(sorted(out_cpu)), max_abs_err=tiny_err,
-        atol=TINY_ATOL, k1_launches=tiny_launches[0],
-        k2_launches=tiny_launches[1])
+        atol=TINY_ATOL, lift_launches=tiny_launches["flosp_stereo_lift"],
+        k2_launches=tiny_launches["crp_relation_matmul"],
+        k1_launches=tiny_launches["stereo_cosine_fuse"])
     check(tiny_err <= TINY_ATOL, f"tiny CUDA vs CPU error {tiny_err}")
-    check(min(tiny_launches) > 0, "tiny forward launched no kernel")
+    check(tiny_launches["flosp_stereo_lift"] == 1
+          and tiny_launches["crp_relation_matmul"] == 1
+          and tiny_launches["stereo_cosine_fuse"] == 0,
+          f"tiny forward launches {tiny_launches} (lift and K2 once, K1 "
+          "never)")
 
     # ---- 6. main path: flagship KITTI stereo serving ----
-    cfg = load_config(
-        default_config_path(
-            "semantic_kitti/multicam_flospdepth_crp_stereodepth_cascadecls"),
-        overrides={"use_stereo_depth_gt": False,
-                   "compute_dtype": "bfloat16", "use_pallas": True},
-    )
-    model = randomize_weights(OccDepthModel(cfg), seed=0).to(dev)
-    calib = make_synthetic_batch(cfg, batch_size=1, seed=0)
-    pipe = ServingPipeline(cfg, model, calib, batch_size=BATCH,
-                           max_in_flight=2)
     t0 = time.perf_counter()
     pipe.warmup()
     warm_s = time.perf_counter() - t0
@@ -1006,12 +1231,19 @@ def main() -> None:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
-    start.record()
-    preds = list(pipe.run(frames))
-    end.record()
-    end.synchronize()
+    with stage_events(pipe.model) as events:
+        start.record()
+        preds = list(pipe.run(frames))
+        end.record()
+        end.synchronize()
     wall_s = time.perf_counter() - t0
     launches = read_counts()
+    stages = stage_ms(events)
+    log("serve_stages", gpu=repr(smi), dispatches=len(events["sfa_lift"]),
+        sfa_lift_ms_per_dispatch=f"{stages['sfa_lift']:.4f}",
+        crp_ms_per_dispatch=f"{stages['crp']:.4f}",
+        timed="median over the dispatches, CUDA events around sfa_lift "
+              "and CPMegaVoxels.forward")
     dispatches = -(-N_FRAMES // BATCH)
     ms_frame = start.elapsed_time(end) / N_FRAMES
     peak = torch.cuda.max_memory_allocated()
@@ -1020,8 +1252,9 @@ def main() -> None:
         warmup_s=f"{warm_s:.2f}", ms_per_frame=f"{ms_frame:.2f}",
         fps=f"{N_FRAMES / wall_s:.3f}",
         peak_mem_gib=f"{peak / 2**30:.3f}",
-        k1_launches=launches["stereo_cosine_fuse"],
-        k2_launches=launches["crp_relation_matmul"])
+        lift_launches=launches["flosp_stereo_lift"],
+        k2_launches=launches["crp_relation_matmul"],
+        k1_launches=launches["stereo_cosine_fuse"])
     check(len(preds) == N_FRAMES, f"{len(preds)} outputs for {N_FRAMES}")
     for p in preds:
         check(p.shape == tuple(cfg.full_scene_size) and p.dtype == np.uint8,
@@ -1030,16 +1263,18 @@ def main() -> None:
         check(np.unique(p).size > 1, "a served grid is constant")
     check(len({p.tobytes() for p in preds}) == N_FRAMES,
           "distinct frames gave identical grids")
-    check(launches["stereo_cosine_fuse"] == dispatches * len(cfg.project_res),
+    check(launches["flosp_stereo_lift"] == dispatches,
+          f"fused lift launches {launches['flosp_stereo_lift']}")
+    check(launches["stereo_cosine_fuse"] == 0,
           f"K1 launches {launches['stereo_cosine_fuse']}")
-    check(launches["crp_relation_matmul"] == dispatches * cfg.n_relations,
+    check(launches["crp_relation_matmul"] == dispatches,
           f"K2 launches {launches['crp_relation_matmul']}")
     check(launches["dw_filter_grad"] == 0, "serving ran a backward")
     check(launches["conv3x3"] == 0, "serving at decoder_conv_impl=auto ran K3")
 
     # ---- 7-10. K4, autograd through K1/K2, tiny and flagship training ----
     k4 = phase_k4(dev)
-    phase_autograd(dev)
+    phase_autograd(dev, calib, cfg.img_shape)
     phase_tiny_train(dev)
     train = phase_train(dev, smi)
     # ---- 11-12. K3 and the eval path ----
@@ -1056,28 +1291,40 @@ def main() -> None:
                  "probe": probes["launches"].get(name, 0)}
         return {"launches": sum(paths.values()), "launches_by_path": paths}
 
-    bf16 = k2[torch.bfloat16]
-    # bytes each kernel must move at the shapes timed above
-    k1_bound = bound_ms(3 * BATCH * N * C * 4 + 2 * BATCH * N * 4,
-                        6 * BATCH * N * C, FP32_FLOPS)
-    k2_bound = bound_ms(BATCH * (Nv * M * 2 + M * Cc * 2 + Nv * Cc * 4),
-                        2 * BATCH * Nv * M * Cc, BF16_FLOPS)
     print(json.dumps({"kernels": [
         {"name": "stereo_cosine_fuse", "route": "cuda",
          "source": "occdepth_tpu_torch/csrc/stereo_fuse.cu",
          "replaces": "occdepth_tpu/ops/pallas_kernels.py:118",
          **by_path("stereo_cosine_fuse"),
-         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
-         "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
-         "library_ms": None},
+         **{k: k1[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                               "bound_by")},
+         "library_ms": None,
+         "timed": "standalone, 2 x 262,144 rows x 32 fp32, CUDA-graph "
+                  "replays; the model's paths run it fused (flosp_stereo_lift)"},
+        {"name": "flosp_stereo_lift", "route": "cuda",
+         "source": "occdepth_tpu_torch/csrc/stereo_fuse.cu",
+         "replaces": "occdepth_tpu/ops/pallas_kernels.py:118, "
+                     "occdepth_tpu/ops/flosp_gather.py:48, "
+                     "occdepth_tpu/models/sfa.py:23",
+         **by_path("flosp_stereo_lift"),
+         **{k: lift[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                 "bound_by", "yardstick_ms")},
+         "ms_channels_last": lift["channels_last"],
+         "library_ms": None,
+         "timed": "serving shape: batch 2, 262,144 voxels, C=32, bf16 NCHW "
+                  "maps (their channels-last copies timed), the rig's "
+                  "projection, P=1; yardstick: per-scale index_select + K1"},
         {"name": "crp_relation_matmul", "route": "cuda",
          "source": "occdepth_tpu_torch/csrc/crp_matmul.cu",
          "replaces": "occdepth_tpu/ops/pallas_kernels.py:61",
          **by_path("crp_relation_matmul"),
-         "max_abs_err": max(e for e, _, _ in k2.values()),
-         "ms": bf16[1], "plain_ms": bf16[2],
-         "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
-         "library_ms": None},
+         "max_abs_err": max(t["max_abs_err"] for t in k2.values()),
+         **{k: k2["bfloat16"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by")},
+         "library_ms": None,
+         "fp32": k2["float32"],
+         "timed": "the four relations at batch 2 in one call, (4096,512)@"
+                  "(512,256) each, bf16 (wgmma); fp32 (SIMT) beside"},
         {"name": "dw_filter_grad", "route": "cuda",
          "source": "occdepth_tpu_torch/csrc/dw_filter_grad.cu",
          "replaces": "occdepth_tpu/ops/dw_conv.py:99",

@@ -10,8 +10,15 @@
 //   d (64, 16) fp32 = a[rows] @ b (16, 64)^T, rows[m] = (m / 8) g + shift
 //                     + m % 8.
 //
-// Not a port of a TPU kernel: it isolates the layout that the wgmma
-// kernels (conv3x3.cu, matmul_probe.cu) depend on.
+// A second entry point checks the register-A form that crp_matmul.cu uses:
+// a 64 x 64 bf16 tile of A^T (rows k, m contiguous) lands by TMA, 128B-
+// swizzled, `ldmatrix_x4_trans` turns it into A fragments, and four
+// `wgmma_bf16_rs` (m64n256k16) multiply them by a K-major (256, 64) B:
+//
+//   d (64, 256) fp32 = at^T @ b^T.
+//
+// Not a port of a TPU kernel: it isolates the layouts that the wgmma
+// kernels (conv3x3.cu, matmul_probe.cu, crp_matmul.cu) depend on.
 #include <cuda_bf16.h>
 
 #include "hopper.cuh"
@@ -92,5 +99,83 @@ extern "C" int occ_hopper_selftest(const void* a, const void* b, void* dump,
   if (rc != 0) return rc;
   hopper_selftest_kernel<<<1, 128, 0, stream>>>(
       tm_a, tm_b, rows, shift, group_rows, static_cast<uint16_t*>(dump), d);
+  return (int)cudaGetLastError();
+}
+
+namespace {
+
+__global__ void __launch_bounds__(128)
+hopper_selftest_rs_kernel(const __grid_constant__ CUtensorMap tm_at,
+                          const __grid_constant__ CUtensorMap tm_b,
+                          float* __restrict__ d) {
+  __shared__ __align__(1024) unsigned char s_at[64 * 128];
+  __shared__ __align__(1024) unsigned char s_b[256 * 128];
+  __shared__ __align__(8) uint64_t s_bar;
+  const uint32_t bar = smem_u32(&s_bar);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar, sizeof(s_at) + sizeof(s_b));
+    tma_load_2d(smem_u32(s_at), &tm_at, bar, 0, 0);
+    tma_load_2d(smem_u32(s_b), &tm_b, bar, 0, 0);
+  }
+  mbar_wait(bar, 0);
+
+  const int warp = tid >> 5, lane = tid & 31;
+  // thread `lane` addresses row lane % 8 of matrix lane / 8: matrices 0-3
+  // are (k 0-7, m 0-7), (k 0-7, m 8-15), (k 8-15, m 0-7), (k 8-15, m 8-15)
+  // of the warp's 16 rows of m
+  const int mat = lane >> 3;
+  const int chunk = 2 * warp + (mat & 1);
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  uint32_t a[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int k = 16 * j + 8 * (mat >> 1) + (lane & 7);
+    ldmatrix_x4_trans(a[j], smem_u32(s_at) + k * 128 +
+                                ((chunk ^ (k & 7)) << 4));
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    wgmma_bf16_rs(acc, a[j], desc_sw128(smem_u32(s_b) + 32 * j), 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  const int r = warp * 16 + (lane >> 2);
+  const int c = (lane & 3) * 2;
+#pragma unroll
+  for (int j = 0; j < 32; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      d[(r + 8 * h) * 256 + 8 * j + c] = acc[4 * j + 2 * h];
+      d[(r + 8 * h) * 256 + 8 * j + c + 1] = acc[4 * j + 2 * h + 1];
+    }
+}
+
+}  // namespace
+
+// at (64, 64) and b (256, 64) contiguous bf16, 16-byte aligned; d (64,
+// 256) fp32 contiguous.  Returns the CUDA error code of the launch, -4/-5
+// if no tensor map could be made.
+extern "C" int occ_hopper_selftest_rs(const void* at, const void* b,
+                                      float* d, cudaStream_t stream) {
+  CUtensorMap tm_at, tm_b;
+  const uint64_t at_dims[2] = {64, 64}, b_dims[2] = {64, 256};
+  const uint64_t stride[1] = {128};
+  const uint32_t at_box[2] = {64, 64}, b_box[2] = {64, 256};
+  int rc = make_tensor_map(&tm_at, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, at,
+                           at_dims, stride, at_box,
+                           CU_TENSOR_MAP_SWIZZLE_128B);
+  if (rc == 0)
+    rc = make_tensor_map(&tm_b, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, b,
+                         b_dims, stride, b_box, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (rc != 0) return rc;
+  hopper_selftest_rs_kernel<<<1, 128, 0, stream>>>(tm_at, tm_b, d);
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,8 @@
 """CRP (context relation prior) bottleneck module, NCDHW.
 
 Counterpart of `occdepth_tpu/models/crp3d.py` with the reference's module
-names.  Each relation's product sigmoid(P) @ mega runs through kernel K2
-(`ops/crp_matmul.py`) on CUDA.
+names.  The relations' products sigmoid(P) @ mega run through kernel K2
+(`ops/crp_matmul.py`) on CUDA, all of them in one launch.
 """
 from __future__ import annotations
 
@@ -55,12 +55,12 @@ class CPMegaVoxels(nn.Module):
         # (B, ctx, M) conv output read as (B, M, ctx) through strides
         mega = self.mega_context(x_agg).reshape(
             B, self.context_feature, M).transpose(1, 2)
-        logits, rels = [], []
-        for conv in self.context_prior_logits:
-            lg = conv(x_agg).reshape(B, M, N)  # the loss's (B, M, N) layout
-            logits.append(lg)
-            rel = crp_relation_matmul(lg.transpose(1, 2), mega)  # (B, N, ctx)
-            rels.append(rel.to(x.dtype).transpose(1, 2).reshape(
-                B, self.context_feature, *self.size))
-        h = self.resize(torch.cat([x, *rels], dim=1))
-        return {"x": h, "P_logits": torch.stack(logits, dim=1)}
+        # the loss's (B, n_rel, M, N) layout, read as (B, n_rel, N, M)
+        logits = torch.stack([conv(x_agg).reshape(B, M, N)
+                              for conv in self.context_prior_logits], dim=1)
+        rels = crp_relation_matmul(logits.transpose(2, 3), mega)
+        # (B, n_rel, N, ctx) -> channels r * ctx + c, the reference's cat order
+        rels = rels.to(x.dtype).transpose(2, 3).reshape(
+            B, self.n_relations * self.context_feature, *self.size)
+        h = self.resize(torch.cat([x, rels], dim=1))
+        return {"x": h, "P_logits": logits}

@@ -1,7 +1,9 @@
 """SFA: multi-scale FLoSP lifting with Stereo-SFA cross-view fusion.
 
 Counterpart of `occdepth_tpu/models/sfa.py` for the KITTI/TartanAir grid
-layout (flat voxel order reshapes directly to (X, Y, Z)).
+layout (flat voxel order reshapes directly to (X, Y, Z)).  Two views go
+through the fused lift (`flosp_stereo_lift`, one kernel on CUDA); one view
+through the per-scale gather.
 """
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ import torch
 
 from occdepth_tpu_torch.ops.flosp_gather import (
     flosp_gather_flat,
+    flosp_stereo_lift,
     multiview_cosine_fuse,
 )
 
@@ -29,11 +32,15 @@ def sfa_lift(
     """
     if dataset == "NYU":
         raise NotImplementedError("the NYU (X, Z, Y) layout is not ported yet")
-    x3d = None
-    for scale in project_res:
-        pix = projected_pix // scale if scale > 1 else projected_pix
-        feats, valid = flosp_gather_flat(x_rgb[f"1_{scale}"], pix, fov_mask)
-        fused = multiview_cosine_fuse(feats, valid)  # (B, N, C)
-        x3d = fused if x3d is None else x3d + fused
+    maps = [x_rgb[f"1_{scale}"] for scale in project_res]
+    if projected_pix.shape[1] == 2:
+        x3d = flosp_stereo_lift(maps, projected_pix, fov_mask, project_res)
+    else:
+        x3d = None
+        for x2d, scale in zip(maps, project_res):
+            pix = projected_pix // scale if scale > 1 else projected_pix
+            feats, valid = flosp_gather_flat(x2d, pix, fov_mask)
+            fused = multiview_cosine_fuse(feats, valid)  # (B, N, C)
+            x3d = fused if x3d is None else x3d + fused
     B, N, C = x3d.shape
     return x3d.reshape(B, *scene_dims, C)

@@ -1,11 +1,16 @@
 """K2: CRP relation product sigmoid(P) @ mega (kernel `csrc/crp_matmul.cu`).
 
-Counterpart of `occdepth_tpu/ops/pallas_kernels.py::crp_relation_matmul`.
-For CPU tensors the wrapper runs the plain PyTorch version; for CUDA
-tensors it launches the kernel or raises.  On CUDA with gradients enabled
-the kernel is the forward of an autograd Function whose backward is the
-plain version's gradient as two matmuls (the JAX package computes them
-outside any Pallas kernel too):
+Counterpart of `occdepth_tpu/ops/pallas_kernels.py::crp_relation_matmul`,
+batched over relations: one launch computes every (batch item, relation)
+product, with mega shared by the relations of a batch item.  For CPU
+tensors the wrapper runs the plain PyTorch version; for CUDA tensors it
+launches the kernel or raises.  bf16 operands in the model's layout
+(logits voxel-contiguous, mega mega-voxel-contiguous, 16-byte aligned) take
+the wgmma kernel, whose sigmoid is split into two bf16 terms
+(`split_bf16`); fp32 operands and other layouts take the SIMT kernel.  On
+CUDA with gradients enabled the kernel is the forward of an autograd
+Function whose backward is the plain version's gradient as two matmuls
+(the JAX package computes them outside any Pallas kernel too):
 
     dP = (dOut @ mega^T) * s * (1 - s),   dmega = s^T @ dOut,   s = sigmoid(P)
 """
@@ -18,10 +23,24 @@ from occdepth_tpu_torch.ops import cuda_lib
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _broadcast_mega(p_logit: torch.Tensor, mega: torch.Tensor) -> torch.Tensor:
+    """mega (B, M, C) read by (B, R, N, M) logits: one per batch item."""
+    return mega.unsqueeze(-3) if p_logit.dim() == mega.dim() + 1 else mega
+
+
 def crp_relation_matmul_reference(p_logit: torch.Tensor,
                                   mega: torch.Tensor) -> torch.Tensor:
     """Plain version: sigmoid(p_logit) @ mega in float32."""
-    return torch.sigmoid(p_logit.float()) @ mega.float()
+    return torch.sigmoid(p_logit.float()) @ _broadcast_mega(
+        p_logit, mega).float()
+
+
+def split_bf16(s: torch.Tensor) -> tuple:
+    """(hi, lo) bf16 with hi + lo = s within 2^-16 relative: the wgmma
+    kernel's two-term form of an fp32 sigmoid (hi = bf16(s), lo = bf16(s -
+    hi), each rounded to nearest)."""
+    hi = s.to(torch.bfloat16)
+    return hi, (s - hi.float()).to(torch.bfloat16)
 
 
 def crp_relation_matmul(p_logit: torch.Tensor,
@@ -29,14 +48,15 @@ def crp_relation_matmul(p_logit: torch.Tensor,
     """sigmoid(p_logit) @ mega with fp32 accumulation.
 
     Args:
-        p_logit: (B, N, M) or (N, M) relation logits, float32 or bfloat16,
-            any strides (the model passes a transposed view of its
-            (B, M, N) conv output).
-        mega: (B, M, C) or (M, C), same dtype, any strides.
+        p_logit: (B, R, N, M), (B, N, M) or (N, M) relation logits, float32
+            or bfloat16, any strides (the model passes a transposed view of
+            its (B, R, M, N) stack of conv outputs).
+        mega: (B, M, C) for 4-D or 3-D logits (shared by the R relations),
+            (M, C) for 2-D ones; same dtype, any strides.
 
-    Returns (B, N, C) or (N, C) float32.  On CUDA the result is a
-    transposed view of a contiguous (B, C, N) buffer — the channels-first
-    layout the CRP's next conv reads.
+    Returns (B, R, N, C), (B, N, C) or (N, C) float32.  On CUDA the result
+    is a transposed view of a contiguous (..., C, N) buffer: the
+    channels-first layout the CRP's next conv reads.
     """
     if p_logit.device.type == "cpu":
         return crp_relation_matmul_reference(p_logit, mega)
@@ -56,44 +76,78 @@ class _CrpMatmulFn(torch.autograd.Function):
     def backward(ctx, grad_out):
         p_logit, mega = ctx.saved_tensors
         s = torch.sigmoid(p_logit.float())
+        mega_b = _broadcast_mega(p_logit, mega).float()
         d_p = d_mega = None
         if ctx.needs_input_grad[0]:
-            d_p = (grad_out @ mega.float().transpose(-1, -2)) * (s * (1.0 - s))
+            d_p = (grad_out @ mega_b.transpose(-1, -2)) * (s * (1.0 - s))
             d_p = d_p.to(p_logit.dtype)
         if ctx.needs_input_grad[1]:
-            d_mega = (s.transpose(-1, -2) @ grad_out).to(mega.dtype)
+            d_mega = s.transpose(-1, -2) @ grad_out
+            if p_logit.dim() == mega.dim() + 1:
+                d_mega = d_mega.sum(dim=-3)  # over the relations
+            d_mega = d_mega.to(mega.dtype)
         return d_p, d_mega
+
+
+def _sane_strides(t: torch.Tensor) -> list:
+    """t's strides with each size-1 dim's replaced by the dense stride it
+    would have (torch leaves those arbitrary; TMA reads every stride)."""
+    strides, dense = list(t.stride()), 1
+    for i in reversed(range(t.dim())):
+        if t.shape[i] == 1:
+            strides[i] = dense
+        dense = strides[i] * t.shape[i]
+    return strides
+
+
+def wgmma_path(p_logit: torch.Tensor, mega: torch.Tensor) -> bool:
+    """Whether (B, R, N, M) logits and (B, M, C) mega take the wgmma kernel:
+    bf16, logits voxel-contiguous and mega mega-voxel-contiguous, every
+    other stride a multiple of 16 bytes, both 16-byte aligned."""
+    if p_logit.dtype != torch.bfloat16 or mega.dtype != torch.bfloat16:
+        return False
+    ps, gs = _sane_strides(p_logit), _sane_strides(mega)
+    return (ps[2] == 1 and gs[1] == 1
+            and all(s % 8 == 0 for s in (ps[0], ps[1], ps[3], gs[0], gs[2]))
+            and p_logit.data_ptr() % 16 == 0 and mega.data_ptr() % 16 == 0)
 
 
 def _launch(p_logit, mega):
     """The kernel launch behind `crp_relation_matmul` (CUDA tensors)."""
-    squeeze = p_logit.dim() == 2
-    if squeeze:
-        p_logit, mega = p_logit.unsqueeze(0), mega.unsqueeze(0)
-    B, N, M = p_logit.shape
-    C = mega.shape[-1]
-    for name, t in (("p_logit", p_logit), ("mega", mega)):
-        if t.device != p_logit.device or t.device.type != "cuda":
+    dim = p_logit.dim()
+    if dim not in (2, 3, 4) or mega.dim() != min(dim, 3):
+        raise ValueError(f"crp_relation_matmul: shapes {tuple(p_logit.shape)}"
+                         f" and {tuple(mega.shape)}")
+    if dim == 2:
+        p4, g3 = p_logit[None, None], mega[None]
+    else:
+        p4, g3 = (p_logit[:, None] if dim == 3 else p_logit), mega
+    B, R, N, M = p4.shape
+    C = g3.shape[-1]
+    for name, t in (("p_logit", p4), ("mega", g3)):
+        if t.device != p4.device or t.device.type != "cuda":
             raise ValueError(f"crp_relation_matmul: {name} on {t.device}")
         if t.dtype not in _DTYPE_CODE:
             raise TypeError(f"crp_relation_matmul: {name} is {t.dtype}")
-    if mega.dtype != p_logit.dtype:
-        raise TypeError(f"crp_relation_matmul: dtypes {p_logit.dtype} "
-                        f"and {mega.dtype} differ")
-    if mega.shape != (B, M, C):
+    if g3.dtype != p4.dtype:
+        raise TypeError(f"crp_relation_matmul: dtypes {p4.dtype} "
+                        f"and {g3.dtype} differ")
+    if g3.shape != (B, M, C):
         raise ValueError(f"crp_relation_matmul: shapes {tuple(p_logit.shape)}"
                          f" and {tuple(mega.shape)}")
-    out = torch.empty((B, C, N), dtype=torch.float32,
-                      device=p_logit.device).transpose(1, 2)
+    out = torch.empty((B, R, C, N), dtype=torch.float32,
+                      device=p4.device).transpose(2, 3)
+    path = int(wgmma_path(p4, g3))
+    ps, gs = _sane_strides(p4), _sane_strides(g3)
     rc = cuda_lib.library().occ_crp_relation_matmul(
-        p_logit.data_ptr(), mega.data_ptr(), out.data_ptr(),
-        _DTYPE_CODE[p_logit.dtype], B, N, M, C,
-        *p_logit.stride(), *mega.stride(), *out.stride(),
-        torch.cuda.current_stream(p_logit.device).cuda_stream,
+        p4.data_ptr(), g3.data_ptr(), out.data_ptr(),
+        _DTYPE_CODE[p4.dtype], path, B, R, N, M, C,
+        ps[0], ps[1], ps[2], ps[3], gs[0], gs[1], gs[2], *out.stride(),
+        torch.cuda.current_stream(p4.device).cuda_stream,
     )
     cuda_lib.check(rc, "crp_relation_matmul")
     crp_relation_matmul.launches += 1
-    return out[0] if squeeze else out
+    return out[0, 0] if dim == 2 else out[:, 0] if dim == 3 else out
 
 
 crp_relation_matmul.launches = 0

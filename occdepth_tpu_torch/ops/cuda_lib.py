@@ -45,8 +45,12 @@ _SIGNATURES = {
         [_P, _P, _P, _P, _P, _I64, _I64, ctypes.c_int, _I64, _I64, _I64,
          _I64, ctypes.c_float, _P]
     ),
+    "occ_flosp_stereo_lift": (
+        [_P, _P, ctypes.c_int, _P, _P, _P, ctypes.c_int, _I64, _I64,
+         ctypes.c_int, ctypes.c_int, ctypes.c_float, _P]
+    ),
     "occ_crp_relation_matmul": (
-        [_P, _P, _P, ctypes.c_int] + [_I64] * 13 + [_P]
+        [_P, _P, _P, ctypes.c_int, ctypes.c_int] + [_I64] * 16 + [_P]
     ),
     "occ_dw_filter_grad": (
         [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int] + [_I64] * 14 + [_P]
@@ -56,6 +60,7 @@ _SIGNATURES = {
     "occ_row_gather": [_P, _P, _P, _I64, _I64, _I64, ctypes.c_int, _P],
     "occ_matmul_probe": [_P, _P, _P] + [_I64] * 4 + [_P],
     "occ_hopper_selftest": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P],
+    "occ_hopper_selftest_rs": [_P, _P, _P, _P],
 }
 
 

@@ -1,8 +1,11 @@
 """K1: Stereo-SFA cosine fusion of two views (kernel `csrc/stereo_fuse.cu`).
 
 Counterpart of `occdepth_tpu/ops/pallas_kernels.py::stereo_cosine_fuse`.
-For CPU tensors the wrapper runs the plain PyTorch version; for CUDA
-tensors it launches the kernel or raises.  On CUDA with gradients enabled
+The model's lift runs this fusion inside the fused lift
+(`ops/flosp_gather.py::flosp_stereo_lift`, which shares the kernel's
+per-row code); this wrapper is the fusion alone.  For CPU tensors the
+wrapper runs the plain PyTorch version; for CUDA tensors it launches the
+kernel or raises.  On CUDA with gradients enabled
 the kernel is the forward of an autograd Function whose backward is the
 gradient of the plain version, recomputed from the saved inputs: the JAX
 package has no backward kernel either (it differentiates the jnp formula).

@@ -41,8 +41,9 @@ FLAGSHIP = "semantic_kitti/multicam_flospdepth_crp_stereodepth_cascadecls"
 KINDS = (
     ("K3 conv3x3", r"conv3x3"),
     ("K4 dw_filter_grad", r"dw_filter_grad"),
+    ("K1 fused lift flosp_stereo_lift", r"flosp_stereo_lift"),
     ("K1 stereo_cosine_fuse", r"stereo_cosine_fuse"),
-    ("K2 crp_relation_matmul", r"crp_relation_matmul"),
+    ("K2 crp_relation_matmul", r"crp_relation_matmul|crp_wgmma"),
     ("batch norm", r"batch_norm|bn_"),
     ("convolution (cuDNN)", r"conv|xmma|implicit|dgrad|wgrad|cudnn|fprop"),
     ("matmul (cuBLAS)", r"gemm|cutlass|sm90_|ampere_"),

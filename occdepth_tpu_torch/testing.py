@@ -1,6 +1,6 @@
 """Reduced-size configs, seeded random weights, a synthetic on-disk
-SemanticKITTI tree and the fp32-noise-aware comparison helpers for tests
-and smoke runs."""
+SemanticKITTI tree, the fp32-noise-aware comparison helpers and the
+stereo-lift inputs for tests and smoke runs."""
 from __future__ import annotations
 
 import copy
@@ -50,6 +50,44 @@ def tiny_kitti_config(**overrides) -> OccDepthConfig:
     )
     base.update(overrides)
     return OccDepthConfig(**base)
+
+
+def lift_points(rng: np.random.RandomState, B: int, N: int, P: int,
+                hw: tuple) -> tuple:
+    """Two-view pattern points with the edge cases of the FLoSP gather.
+
+    Returns pix (B, 2, N, P, 2) int32 at the (H, W) = hw project scale and
+    fov (B, 2, N, P) bool.  Coordinates span [-3, W + 3) x [-3, H + 3)
+    (negative ones floor-divide), a point is in FOV only inside the image
+    and then with probability 0.8; the first 5% of voxels sit on the last
+    column and the next 5% on the last row (in FOV), and one voxel in 8 is
+    out of view 1's FOV entirely (seen by view 0 alone) and one in 16 out
+    of view 0's.
+    """
+    H, W = hw
+    pix = np.stack([rng.randint(-3, W + 3, (B, 2, N, P)),
+                    rng.randint(-3, H + 3, (B, 2, N, P))], -1)
+    edge = max(1, N // 20)
+    pix[:, :, :edge, :, 0] = W - 1
+    pix[:, :, edge:2 * edge, :, 1] = H - 1
+    inside = ((pix[..., 0] >= 0) & (pix[..., 0] < W) & (pix[..., 1] >= 0)
+              & (pix[..., 1] < H))
+    fov = inside & (rng.rand(B, 2, N, P) > 0.2)
+    fov[:, :, :2 * edge] = inside[:, :, :2 * edge]
+    fov[:, 1, 2 * edge::8] = False
+    fov[:, 0, 2 * edge + 1::16] = False
+    return pix.astype(np.int32), fov
+
+
+def lift_inputs(rng: np.random.RandomState, B: int, N: int, P: int, C: int,
+                hw: tuple, scales: tuple) -> tuple:
+    """`lift_points` and one map per scale: (maps, pix, fov) with maps
+    {scale: (B, 2, ceil(H/s), ceil(W/s), C) float32}, the JAX package's
+    NHWC layout."""
+    H, W = hw
+    maps = {s: rng.randn(B, 2, -(-H // s), -(-W // s), C).astype(np.float32)
+            for s in scales}
+    return (maps, *lift_points(rng, B, N, P, hw))
 
 
 def synthetic_dataset(cfg: OccDepthConfig, n: int, seed: int = 0,

@@ -1,6 +1,8 @@
 """Port kernels K1/K2/K3/K4/K5/K6: plain versions vs the JAX Pallas kernels
 (interpret mode on the CPU), their autograd, and the CUDA kernels vs the
-plain versions (`cuda` marker, skipped without a card).
+plain versions (`cuda` marker, skipped without a card), the fused stereo
+lift (K1 with the gather and the scale sum) and K2 batched over relations
+among them.
 
 JAX is imported inside the tests that compare with it, so the `cuda` cases
 also run on a GPU host without JAX:
@@ -23,11 +25,16 @@ from occdepth_tpu_torch.ops.crp_matmul import (
     crp_relation_matmul,
     crp_relation_matmul_reference,
 )
+from occdepth_tpu_torch.ops.crp_matmul import wgmma_path
 from occdepth_tpu_torch.ops.dw_conv import (
     dw_conv2d_fastgrad,
     dw_filter_grad,
     dw_filter_grad_reference,
     use_fast_dw_grad,
+)
+from occdepth_tpu_torch.ops.flosp_gather import (
+    flosp_stereo_lift,
+    flosp_stereo_lift_reference,
 )
 from occdepth_tpu_torch.ops.matmul_probe import (
     matmul_probe,
@@ -38,6 +45,7 @@ from occdepth_tpu_torch.ops.stereo_fuse import (
     stereo_cosine_fuse,
     stereo_cosine_fuse_reference,
 )
+from occdepth_tpu_torch.testing import lift_inputs
 
 
 def _fuse_inputs(rng, N, C):
@@ -575,3 +583,143 @@ def test_hopper_helpers_tma_swizzle_and_wgmma(cuda_device, shift,
     m = torch.arange(64, device=cuda_device)
     ref = a[(m // 8) * group_rows + shift + m % 8].float() @ b.float().t()
     assert (d - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_hopper_helpers_ldmatrix_trans_and_rs_wgmma(cuda_device):
+    """csrc/hopper.cuh's register-A path on its own: a TMA-loaded (k, m)
+    tile read by `ldmatrix_x4_trans` into A fragments and four
+    `wgmma_bf16_rs` m64n256k16 products against a K-major B match the
+    float32 product (exact bf16 products, sums of 64 in another order:
+    1e-5 * max|ref|)."""
+    from occdepth_tpu_torch.ops import cuda_lib
+
+    g = torch.Generator(device=cuda_device).manual_seed(10)
+    at = torch.randn(64, 64, device=cuda_device, generator=g).bfloat16()
+    b = torch.randn(256, 64, device=cuda_device, generator=g).bfloat16()
+    d = torch.empty(64, 256, device=cuda_device)
+    rc = cuda_lib.library().occ_hopper_selftest_rs(
+        at.data_ptr(), b.data_ptr(), d.data_ptr(),
+        torch.cuda.current_stream(cuda_device).cuda_stream)
+    cuda_lib.check(rc, "hopper_selftest_rs")
+    torch.cuda.synchronize()
+    ref = at.float().t() @ b.float().t()
+    assert (d - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 4, 4096, 512, 256),
+                                   (1, 3, 200, 72, 70),
+                                   (2, 2, 136, 520, 300),
+                                   (1, 2, 100, 37, 70)])
+def test_crp_matmul_relations_kernel_matches_plain(cuda_device, dtype,
+                                                   shape):
+    """K2 batched over relations, operands laid out as the CRP passes them
+    ((B, R, M, N) logits and (B, C, M) mega read transposed), one launch:
+    within 2e-5 * max|ref| (fp32 sums of M terms in another order; in bf16
+    the split sigmoid's 2^-18 per term).  bf16 takes the wgmma kernel
+    wherever TMA can read the strides (N and M multiples of 8): a partial
+    voxel tile and C < 256, two channel tiles with M not a multiple of 64;
+    N = 100 takes the SIMT kernel."""
+    B, R, N, M, C = shape
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    logits = torch.randn(B, R, M, N, device=cuda_device,
+                         generator=g).to(dtype)
+    mega = torch.randn(B, C, M, device=cuda_device, generator=g).to(dtype)
+    args = (logits.transpose(2, 3), mega.transpose(1, 2))
+    assert wgmma_path(*args) == (dtype == torch.bfloat16 and N % 8 == 0
+                                 and M % 8 == 0)
+    before = crp_relation_matmul.launches
+    out = crp_relation_matmul(*args)
+    torch.cuda.synchronize()
+    assert crp_relation_matmul.launches == before + 1
+    assert out.shape == (B, R, N, C) and out.dtype == torch.float32
+    assert out.transpose(2, 3).is_contiguous()
+    ref = crp_relation_matmul_reference(*args)
+    assert (out - ref).abs().max().item() <= 2e-5 * ref.abs().max().item()
+
+
+def _lift_case(dev, dtype, layout, B, N, P, C, hw, seed):
+    """`lift_inputs` on the card: maps in `dtype` and `layout`."""
+    scales = (1, 2, 4, 8)
+    maps, pix, fov = lift_inputs(np.random.RandomState(seed), B, N, P, C, hw,
+                                 scales)
+    tmaps = []
+    for s in scales:
+        t = torch.from_numpy(maps[s]).to(dev, dtype).permute(0, 1, 4, 2, 3)
+        tmaps.append(t.contiguous() if layout == "nchw" else t)
+    return (tmaps, torch.from_numpy(pix).to(dev),
+            torch.from_numpy(fov).to(dev), scales)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["nchw", "channels_last"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [(2, 20000, 1, 32, (93, 305)),
+                                  (1, 3001, 4, 24, (37, 61)),
+                                  (2, 777, 3, 20, (21, 37))],
+                         ids=["serve_like", "p4_c24", "p3_c20"])
+def test_flosp_stereo_lift_kernel_matches_plain(cuda_device, dtype, layout,
+                                               case):
+    """The fused lift vs its plain version (flosp_gather_flat, the plain
+    fusion, the sum over scales) in one launch: fp32 row sums and scale
+    sums in another order, 1e-5 absolute (as K1).  C = 32 and 24 move 16
+    bytes a thread; C = 20 in bf16 (40-byte rows) one element a thread.
+    Points on every map's last row and column, out of FOV, and voxels
+    seen by one view only (`lift_inputs`)."""
+    B, N, P, C, hw = case
+    maps, pix, fov, scales = _lift_case(cuda_device, dtype, layout, B, N, P,
+                                        C, hw, seed=P)
+    before = flosp_stereo_lift.launches
+    out = flosp_stereo_lift(maps, pix, fov, scales)
+    torch.cuda.synchronize()
+    assert flosp_stereo_lift.launches == before + 1
+    assert out.shape == (B, N, C) and out.is_contiguous()
+    ref = flosp_stereo_lift_reference(maps, pix, fov, scales)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_flosp_stereo_lift_gradient_matches_plain_autograd(cuda_device):
+    maps, pix, fov, scales = _lift_case(cuda_device, torch.float32, "nchw",
+                                        1, 2000, 1, 32, (37, 61), seed=5)
+    leaves = [m.clone().requires_grad_() for m in maps]
+    cot = torch.randn(1, 2000, 32, device=cuda_device)
+    out = flosp_stereo_lift(leaves, pix, fov, scales)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, leaves, cot)
+    want = torch.autograd.grad(
+        flosp_stereo_lift_reference(leaves, pix, fov, scales), leaves, cot)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_lift_and_fuse_raise_on_unsupported_input(cuda_device):
+    maps, pix, fov, scales = _lift_case(cuda_device, torch.float32, "nchw",
+                                        1, 100, 1, 8, (21, 37), seed=1)
+    with pytest.raises(TypeError):
+        flosp_stereo_lift(maps, pix.long(), fov, scales)
+    with pytest.raises(TypeError):
+        flosp_stereo_lift(maps, pix, fov.float(), scales)
+    with pytest.raises(TypeError):
+        flosp_stereo_lift([maps[0].bfloat16()] + maps[1:], pix, fov, scales)
+    with pytest.raises(TypeError):
+        flosp_stereo_lift([m.double() for m in maps], pix, fov, scales)
+    with pytest.raises(ValueError):
+        flosp_stereo_lift([m[:, :1] for m in maps], pix[:, :1], fov[:, :1],
+                          scales)
+    with pytest.raises(ValueError):
+        flosp_stereo_lift(maps, pix.cpu(), fov, scales)
+    f = torch.randn(2, 8, 50, device=cuda_device).transpose(1, 2)
+    m = torch.ones(2, 50, device=cuda_device)
+    with pytest.raises(ValueError):  # channels not unit-stride
+        stereo_cosine_fuse(f, f, m, m)
+    p = torch.randn(2, 3, 64, 32, device=cuda_device).bfloat16()
+    with pytest.raises(ValueError):  # mega must be (B, M, C) for 4-D logits
+        crp_relation_matmul(p, torch.randn(2, 3, 32, 8, device=cuda_device
+                                           ).bfloat16())
+    with pytest.raises(ValueError):
+        crp_relation_matmul(p, torch.randn(2, 31, 8, device=cuda_device
+                                           ).bfloat16())
