@@ -11,6 +11,8 @@ package itself is unchanged.  The kernels' CUDA cases are in
 import ast
 import functools
 import inspect
+import json
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +27,7 @@ from occdepth_tpu_torch.ops.matmul_probe import (
 from occdepth_tpu_torch.ops.row_gather import row_gather, row_gather_reference
 from occdepth_tpu_torch.scripts import (
     bench_conv2d,
+    bench_dwconv,
     bench_gather,
     bench_head_pallas,
 )
@@ -203,7 +206,7 @@ def test_wrappers_raise_on_unsupported_input():
 
 
 @pytest.mark.parametrize("script", [bench_gather, bench_head_pallas,
-                                    bench_conv2d])
+                                    bench_conv2d, bench_dwconv])
 def test_probe_scripts_raise_without_cuda(script, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -259,3 +262,79 @@ def test_in_turns_cycles_variants():
     for _ in range(6):
         call()
     assert seen == [0, 1, 2, 3, 0, 1]
+
+
+def _encoder_dw_rows():
+    """(name, H, W, C, k, stride) of every depthwise conv of the b3 encoder
+    at 370x1220, read from the module tree (TF-SAME: each strided conv
+    takes the size to its ceiling), consecutive equal rows merged with a
+    count."""
+    from occdepth_tpu_torch.models.efficientnet import EfficientNet
+
+    enc = EfficientNet("tf_efficientnet_b3_ns")
+    H, W = (-(-n // enc.conv_stem.stride[0]) for n in (370, 1220))
+    rows, counts = [], []
+    for si, stage in enumerate(enc.blocks):
+        for bi, block in enumerate(stage):
+            conv = block.conv_dw
+            k, s = conv.kernel_size[0], conv.stride[0]
+            row = (H, W, conv.in_channels, k, s)
+            if rows and rows[-1][1:] == row:
+                counts[-1] += 1
+            else:
+                rows.append((f"s{si}b{bi} k{k} s{s}", *row))
+                counts.append(1)
+            H, W = -(-H // s), -(-W // s)
+    return rows, counts
+
+
+def test_dwconv_shapes_match_encoder_and_jax():
+    """bench_dwconv's list is the encoder's depthwise convs, and the JAX
+    script's list but for its last row (1392 channels counted twice where
+    the encoder's second stage-6 block has 2304)."""
+    from occdepth_tpu.scripts import bench_dwconv as jax_dw
+
+    rows, counts = _encoder_dw_rows()
+    assert rows == bench_dwconv.B3_DW_SHAPES
+    assert counts == bench_dwconv.B3_DW_COUNTS
+    assert bench_dwconv.B3_DW_SHAPES[:-2] == jax_dw.B3_DW_SHAPES[:-1]
+    assert bench_dwconv.B3_DW_COUNTS[:-2] == jax_dw.B3_DW_COUNTS[:-1]
+    assert jax_dw.B3_DW_SHAPES[-1] == bench_dwconv.B3_DW_SHAPES[-2]
+    assert jax_dw.B3_DW_COUNTS[-1] == 2
+    assert bench_dwconv.B3_DW_SHAPES[-1] == ("s6b1 k3 s1", 12, 39, 2304, 3, 1)
+    shapes = bench_dwconv.k4_shapes()
+    assert len(shapes) == 10 and sum(n for *_, n in shapes) == 22
+
+
+def test_bench_dwconv_rehearses_on_cpu(monkeypatch, capsys):
+    """The script's control flow at two tiny rows with the device timing
+    stubbed: every candidate printed, the totals weighted by the counts,
+    the launch line, the JSON and `--check` (K4's CPU path is its plain
+    version, so the error is 0)."""
+    from occdepth_tpu_torch.scripts import bench_timing
+
+    monkeypatch.setattr(bench_timing, "cuda_device",
+                        lambda script: torch.device("cpu"))
+    monkeypatch.setattr(bench_timing, "gpu_line", lambda: "stub, 700.00 W")
+    monkeypatch.setattr(bench_timing, "device_ms",
+                        lambda fn, calls=20, reps=5: (fn(), 0.5)[1])
+    monkeypatch.setattr(bench_dwconv, "B3_DW_SHAPES", [
+        ("a k3 s1", 5, 7, 3, 3, 1), ("b k5 s2", 6, 9, 2, 5, 2)])
+    monkeypatch.setattr(bench_dwconv, "B3_DW_COUNTS", [2, 1])
+    bench_dwconv.main(["--dtype", "float32", "--repeats", "1", "--json"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    res = json.loads(lines[-1])
+    assert lines[-2] == "stub, 700.00 W"
+    assert res["totals_ms"] == {"fwd": 1.5, "dx": 1.5, "dw": 1.5,
+                                "dw_pallas": 1.5}
+    assert res["k4_totals_ms"]["dw_pallas"] == 1.0
+    assert res["k4_totals_ms"]["plain"] == 1.0
+    a = res["per_shape"]["a k3 s1"]
+    b_ms, kind = bench_dwconv.k4_bound(3, 5, 7, 3, 4)
+    assert a["count"] == 2 and a["bound_ms"] == b_ms and kind == "bytes"
+    assert a["bound_share"] == b_ms / 0.5
+    assert math.isnan(res["per_shape"]["b k5 s2"]["dw_pallas_ms"])
+    assert any(l.startswith("launches dw_filter_grad=") for l in lines)
+    bench_dwconv.main(["--check", "--dtype", "bfloat16"])
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert res["ok"] and res["worst_rel_err"] == 0.0

@@ -179,6 +179,7 @@ def test_training_imports_no_jax(tmp_path):
         import occdepth_tpu_torch.ops.matmul_probe
         import occdepth_tpu_torch.ops.row_gather
         import occdepth_tpu_torch.scripts.bench_conv2d
+        import occdepth_tpu_torch.scripts.bench_dwconv
         import occdepth_tpu_torch.scripts.bench_gather
         import occdepth_tpu_torch.scripts.bench_head_pallas
         import occdepth_tpu_torch.scripts.bench_timing
