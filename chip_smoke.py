@@ -34,10 +34,15 @@ Phases, one line each:
      fused lift and K2 once per dispatch); the device time of sfa_lift and
      of the CRP block per dispatch (CUDA events,
      scripts/profile_serve_stages.py's hooks);
-  7. K4 dw_filter_grad vs its plain version at every stride-1 depthwise
-     shape of the flagship encoder (batch 1), in bf16 and fp32, with the
-     device times (CUDA-graph replays) of K4, the plain version and cuDNN's
-     weight gradient (aten.convolution_backward), and the bytes bound;
+  7. K4 dw_filter_grad (one launch per conv: clusters of blocks per
+     channel, bands staged by bulk copies) vs its plain version at every
+     stride-1 depthwise shape of the flagship encoder (batch 1, the 22
+     convs of scripts/bench_dwconv.py, which the encoder's forward hooks
+     must reproduce), in bf16 and fp32, with the device times (CUDA-graph
+     replays, bench_dwconv's timing) of K4, the plain version and cuDNN's
+     weight gradient (aten.convolution_backward), the bytes bound and the
+     bound share of each of the ten distinct shapes; K4 must not read
+     under its bound (a kernel that skipped work would);
   8. autograd through K1, the fused lift and K2 (its four relations in
      one call) on the card at the train path's shapes: their autograd
      Functions' gradients vs autograd of the plain versions;
@@ -50,7 +55,7 @@ Phases, one line each:
      labelled synthetic dataset, validating on a 1-sample one at each
      epoch end (counters set to 0 just before); every loss term finite,
      parameters changed, K4 launched once per stride-1 depthwise conv of
-     view 0 per step, the fused lift and K2 once per step and per
+     view 0 per step with no operand copied to NCHW, the fused lift and K2 once per step and per
      validation forward, the standalone K1 never; val/mIoU logged,
      best_val_mIoU kept; metrics.jsonl written; a second Trainer resumes
      at step 3;
@@ -86,9 +91,10 @@ Phases, one line each:
      conv-equivalent each), within 2^-7 max|ref|, with the device times of
      K5, the plain version and torch.matmul, and the bound; K5 must not
      read under its bound (a product hoisted out of the step loop would);
- 15. the probe scripts bench_gather, bench_head_pallas --json and
-     bench_conv2d as subprocesses: each exits 0, prints a time for every
-     candidate and a launch count above 0 of its kernel (K6, K5, K3).
+ 15. the probe scripts bench_gather, bench_head_pallas --json,
+     bench_dwconv and bench_conv2d as subprocesses: each exits 0, prints a
+     time for every candidate (every row of bench_dwconv's list) and a
+     launch count above 0 of its kernel (K6, K5, K4, K3).
 Then a JSON line of per-kernel results, the `nvidia-smi` name/power-limit
 line, and as the last line {"ok": true, "device": {...}}.  Any failure
 raises and exits non-zero; there is no CPU fallback.
@@ -393,61 +399,58 @@ def flagship_dw_shapes(dev) -> list:
 
 
 def phase_k4(dev) -> dict:
-    """7. K4 vs its plain version at every flagship stride-1 dw shape."""
+    """7. K4 vs its plain version at every flagship stride-1 dw shape, and
+    its device times at the ten distinct ones: shapes, inputs and timing
+    from scripts/bench_dwconv.py, the probe users run."""
     import torch
 
-    from occdepth_tpu_torch.ops.dw_conv import (
-        dw_filter_grad,
-        dw_filter_grad_reference,
-    )
+    from occdepth_tpu_torch.ops.dw_conv import dw_filter_grad
+    from occdepth_tpu_torch.scripts import bench_dwconv
 
-    shapes = flagship_dw_shapes(dev)
+    rows = bench_dwconv.k4_shapes()
+    shapes = [(C, H, W, k) for _, H, W, C, k, n in rows for _ in range(n)]
+    hooked = flagship_dw_shapes(dev)
+    check(hooked == shapes, f"the encoder's K4 shapes {hooked} are not "
+          f"bench_dwconv's {shapes}")
     g = torch.Generator(device=dev).manual_seed(7)
     max_err = max_rel = 0.0
-    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
-    bound_kinds = set()
     for C, H, W, k in shapes:
         for dtype in (torch.bfloat16, torch.float32):
-            x = torch.randn(1, C, H, W, device=dev, generator=g).to(dtype)
-            gy = torch.randn(1, C, H, W, device=dev, generator=g).to(dtype)
+            x, _, gy = bench_dwconv.make_inputs(H, W, C, k, 1, dtype, g)
             # the plain version in fp32 on the same (bf16-rounded) inputs
-            ref = dw_filter_grad_reference(x.float(), gy.float(), k, k)
-            out = dw_filter_grad(x, gy, k, k)
-            torch.cuda.synchronize()
-            err = (out - ref).abs().max().item()
-            tol = K4_RTOL * ref.abs().max().item()
+            err, ref_max = bench_dwconv.check_shape(x, gy, k)
+            tol = K4_RTOL * ref_max
             check(err <= tol, f"K4 {dtype} ({C},{H},{W},k{k}) error {err} > {tol}")
             max_err = max(max_err, err)
-            max_rel = max(max_rel, err / ref.abs().max().item())
-            if dtype != torch.bfloat16:
-                continue  # times at the train path's dtype
-            w = torch.zeros(C, 1, k, k, device=dev, dtype=dtype)
-
-            def library():
-                return torch.ops.aten.convolution_backward(
-                    gy, x, w, None, [1, 1], [k // 2, k // 2], [1, 1], False,
-                    [0, 0], C, [False, True, False])[1]
-
-            ms = device_ms(lambda: dw_filter_grad(x, gy, k, k))
-            plain = device_ms(lambda: dw_filter_grad_reference(x, gy, k, k))
-            lib = device_ms(library)
-            ms_single = cuda_ms(lambda: dw_filter_grad(x, gy, k, k))
-            n = C * H * W
-            b_ms, kind = bound_ms(2 * n * x.element_size() + C * k * k * 4,
-                                  2 * k * k * n, FP32_FLOPS)
-            bound_kinds.add(kind)
-            log("k4", shape=f"(1,{C},{H},{W})", k=k, dtype="bfloat16",
-                max_abs_err=err, tol=f"{tol:.3e}", ms=f"{ms:.4f}",
-                ms_single_call=f"{ms_single:.4f}",
-                plain_ms=f"{plain:.4f}", library_ms=f"{lib:.4f}",
-                bound_ms=f"{b_ms:.4f}", bound_by=kind)
-            tot["ms"] += ms
-            tot["plain_ms"] += plain
-            tot["library_ms"] += lib
-            tot["bound_ms"] += b_ms
+            max_rel = max(max_rel, err / ref_max)
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    bound_kinds = set()
+    per_shape = {}
+    for name, H, W, C, k, n in rows:  # times at the train path's dtype
+        x, w, gy = bench_dwconv.make_inputs(H, W, C, k, 1, torch.bfloat16, g)
+        r = bench_dwconv.time_shape(x, w, gy, 1, repeats=20)
+        ms_single = cuda_ms(lambda: dw_filter_grad(x, gy, k, k))
+        bound_kinds.add(r["bound_by"])
+        log("k4", shape=f"(1,{C},{H},{W})", k=k, count=n, dtype="bfloat16",
+            ms=f"{r['dw_pallas_ms']:.4f}", ms_single_call=f"{ms_single:.4f}",
+            plain_ms=f"{r['plain_ms']:.4f}", library_ms=f"{r['dw_ms']:.4f}",
+            bound_ms=f"{r['bound_ms']:.4f}", bound_by=r["bound_by"],
+            bound_share=f"{r['bound_share']:.3f}")
+        # a time under the bound means the kernel skipped work
+        check(r["dw_pallas_ms"] >= r["bound_ms"],
+              f"K4 ({C},{H},{W},k{k}) {r['dw_pallas_ms']} ms under its "
+              f"bound {r['bound_ms']}")
+        per_shape[name] = r["dw_pallas_ms"]
+        tot["ms"] += r["dw_pallas_ms"] * n
+        tot["plain_ms"] += r["plain_ms"] * n
+        tot["library_ms"] += r["dw_ms"] * n
+        tot["bound_ms"] += r["bound_ms"] * n
+        del x, w, gy
     log("k4_total", convs=len(shapes), **{k: f"{v:.4f}" for k, v in tot.items()},
+        bound_share=f"{tot['bound_ms'] / tot['ms']:.3f}",
         max_abs_err=max_err, max_rel_err=f"{max_rel:.3e}")
     return dict(tot, n_convs=len(shapes), max_abs_err=max_err,
+                bound_share=tot["bound_ms"] / tot["ms"], per_shape=per_shape,
                 bound_by="bytes" if bound_kinds == {"bytes"} else "operations")
 
 
@@ -620,8 +623,11 @@ def kernel_counters() -> dict:
 
 
 def reset_counts() -> None:
+    from occdepth_tpu_torch.ops.dw_conv import dw_filter_grad
+
     for fn in kernel_counters().values():
         fn.launches = 0
+    dw_filter_grad.copies = 0
 
 
 def read_counts() -> dict:
@@ -633,6 +639,7 @@ def phase_train(dev, smi: str) -> dict:
     import torch
 
     from occdepth_tpu_torch.config import default_config_path, load_config
+    from occdepth_tpu_torch.ops.dw_conv import dw_filter_grad
     from occdepth_tpu_torch.testing import synthetic_dataset
     from occdepth_tpu_torch.training import Trainer
 
@@ -660,6 +667,7 @@ def phase_train(dev, smi: str) -> dict:
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         launches = read_counts()
+        k4_copies = dw_filter_grad.copies
         peak = torch.cuda.max_memory_allocated()
         step_ms = trainer.step_ms
         ms_step = statistics.mean(step_ms[1:])
@@ -688,7 +696,7 @@ def phase_train(dev, smi: str) -> dict:
             lift_launches=launches["flosp_stereo_lift"],
             k1_launches=launches["stereo_cosine_fuse"],
             k2_launches=launches["crp_relation_matmul"],
-            k4_launches=launches["dw_filter_grad"],
+            k4_launches=launches["dw_filter_grad"], k4_copies=k4_copies,
             k3_launches=launches["conv3x3"], val_steps=val_steps,
             best_val_mIoU=trainer.ckpt.best.get("val/mIoU"),
             **{k.replace("train/", ""): f"{last[k]:.5f}" for k in terms})
@@ -707,6 +715,8 @@ def phase_train(dev, smi: str) -> dict:
         check(n_dw == 22, f"{n_dw} stride-1 depthwise convs (expected 22)")
         check(launches["dw_filter_grad"] == n_dw * TRAIN_STEPS,
               f"K4 launches {launches['dw_filter_grad']}")
+        # the train path hands K4 contiguous NCHW x and g: no copies
+        check(k4_copies == 0, f"K4 copied {k4_copies} operands to NCHW")
         forwards = TRAIN_STEPS + n_val_forwards
         check(launches["flosp_stereo_lift"] == forwards,
               f"fused lift launches {launches['flosp_stereo_lift']}")
@@ -1113,12 +1123,15 @@ def probe_launches(lines, name: str) -> int:
 
 
 def phase_probes() -> dict:
-    """15. The three probe scripts as subprocesses: every candidate timed,
+    """15. The four probe scripts as subprocesses: every candidate timed,
     their kernel launched."""
     import re
 
     from occdepth_tpu_torch.scripts.bench_conv2d import CANDIDATES
     from occdepth_tpu_torch.scripts.bench_conv2d import SHAPES as CONV_SHAPES
+    from occdepth_tpu_torch.scripts.bench_dwconv import (
+        B3_DW_SHAPES as DW_SHAPES,
+    )
     from occdepth_tpu_torch.scripts.bench_gather import SHAPES, candidates
     from occdepth_tpu_torch.scripts.bench_head_pallas import PROBES
 
@@ -1144,6 +1157,18 @@ def phase_probes() -> dict:
     check(res["launches"]["matmul_probe"]
           == probe_launches(lines, "matmul_probe"), "two K5 launch counts")
     launches["matmul_probe"] = res["launches"]["matmul_probe"]
+
+    lines = run_probe("bench_dwconv", "--repeats", "2")
+    rows = [l.split() for l in lines if re.match(r"^s\d+b\d+ k\d s\d ", l)]
+    want = [(name, s) for name, *_, s in DW_SHAPES]
+    check([(" ".join(r[:3]), int(r[2][1:])) for r in rows] == want,
+          f"bench_dwconv printed rows {[r[:3] for r in rows]}")
+    for r in rows:  # fwd, dx, dw everywhere; K4, plain, bound at stride 1
+        vals = [float(v) for v in r[3:9]]
+        n_timed = 6 if r[2] == "s1" else 3
+        check(all(0 < v < math.inf for v in vals[:n_timed]),
+              f"bench_dwconv row {r}")
+    launches["dw_filter_grad"] = probe_launches(lines, "dw_filter_grad")
 
     lines = run_probe("bench_conv2d", "--repeats", "2")
     got = times(lines, r"\)\s+\w+\s+([0-9.]+) ms\s+\[")  # not `bound`
@@ -1332,7 +1357,7 @@ def main() -> None:
          "max_abs_err": k4["max_abs_err"],
          "ms": k4["ms"], "plain_ms": k4["plain_ms"],
          "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
-         "library_ms": k4["library_ms"],
+         "library_ms": k4["library_ms"], "bound_share": k4["bound_share"],
          "timed": f"sum over the {k4['n_convs']} stride-1 depthwise convs "
                   "of one flagship view, bf16, batch 1"},
         {"name": "conv3x3", "route": "cuda",

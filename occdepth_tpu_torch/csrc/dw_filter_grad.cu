@@ -1,4 +1,5 @@
-// Filter gradient of a stride-1 SAME depthwise conv with an odd K x K filter:
+// K4: filter gradient of a stride-1 SAME depthwise conv with an odd K x K
+// filter (K = 3 or 5), bf16 or fp32 in, fp32 out:
 //
 //   dw[c, dr, dc] = sum_{b,h,w} x_pad[b, c, h+dr, w+dc] * g[b, c, h, w]
 //
@@ -6,193 +7,392 @@
 // `dw_filter_grad_pallas` (body `_dwgrad_kernel`), the encoder backward's
 // depthwise filter gradient under dw_conv_grad=pallas.
 //
-// What bounds it on Hopper: device-memory bytes.  The work is 2*K*K flops
-// per element of g against one read of x and one of g, about K*K/2 flops
-// per byte in bf16 (4.5 at K=3, 12.5 at K=5), far below the ~20 flop/byte
-// where fp32 arithmetic would start to matter.  So the design reads x and
-// g once:
-//   * one block per (row tile, channel, batch); the block stages its x rows
-//     plus the K-1 halo rows, zero-padded by (K-1)/2 columns on each side,
-//     as an fp32 slab in shared memory (at most 46 KB, so tiles are ~17
-//     rows at the flagship's 610-wide first stage; halo rows are the only
-//     bytes read twice, ~(K-1)/rows of x);
-//   * each thread walks the tile's g elements (consecutive threads on
-//     consecutive columns, so global loads coalesce), reads g once and the
-//     K*K shifted x values from the slab, and keeps K*K fp32 partial sums
-//     in registers;
-//   * the block reduces each tap with warp shuffles, then across warps in
-//     shared memory in a fixed order, and writes its K*K partials to a
-//     scratch buffer;
-//   * a second small kernel sums each (channel, tap) over the blocks in a
-//     fixed order.  No atomics: the result is the same on every run, as
-//     the TPU kernel's sequential grid gives.
-// The TPU kernel's pltpu.roll column shifts become plain slab offsets.
-// Tensor cores, TMA and multi-stage pipelining are not used.
+// What bounds it on Hopper: device-memory bytes.  Each element of g costs
+// 2*K*K flops against one read of x and one of g, 4.5 (K=3) to 12.5 (K=5)
+// flops per byte in bf16, below the ~20 where fp32 arithmetic would bound
+// it.  The flagship encoder's 22 convs move 0.0465 ms of bytes in all, and
+// 16 of them less than 2 us each, so a launch's fixed cost and each
+// block's overheads matter as much as the bytes.  What the design does:
 //
-// Layouts: x and g are addressed through (batch, channel, row, column)
-// strides, so NCHW and channels-last tensors both work (coalesced when the
-// column stride is 1).  Partials are (C, B * n_tiles, K*K); the output is
-// (C, K*K) float32, i.e. the (C, 1, K, K) weight layout.
+//   * One launch per conv, no scratch buffer, no atomics.  The blocks that
+//     share a channel's plane form a thread-block cluster (1, 2, 4 or 8
+//     blocks); after a cluster barrier block rank 0 sums the others' K*K
+//     partials from distributed shared memory in rank order.  Every sum is
+//     taken in a fixed order, so the result is the same on every run.
+//   * Work sized to the plane.  A unit is (batch, channel, band of rows);
+//     the wrapper's plan (`ops/dw_conv.py::dw_plan`) picks the cluster and
+//     the band height so that the grid fills the SMs: small planes (the
+//     24x77 and 12x39 stages) are one band per block, with as many warps as
+//     the plane has 32-column groups, so no block is mostly reduction;
+//     large planes (185x610, 93x305) are cut into bands over the blocks of
+//     a cluster.
+//   * Staging by bulk copies.  In NCHW a band's rows, halo rows included,
+//     are one contiguous span; one thread stages it with one
+//     `cp.async.bulk` per operand (start rounded down, end rounded up to 16
+//     bytes, completion on an mbarrier) into a ring of up to 4 slots that is
+//     filled ahead, so the next bands' copies run under this band's
+//     arithmetic.  Rows and planes are not 16-byte aligned (flagship row
+//     strides of 1220, 610, 306, 154 and 78 bytes), so the span is copied
+//     as it lies and indexed at its offset; the rounding never reaches
+//     outside the tensor: where it would, the few ragged elements are
+//     copied by threads.  bf16 stays bf16 in shared memory.
+//   * Taps from registers.  A lane owns a column and walks down the band:
+//     each x row's K values are read once and multiplied by the K rows of
+//     g that use them, kept in a ring of K registers that the unrolled loop
+//     indexes at compile time, so an element of g costs K + 1 shared loads
+//     for K*K fmas (the previous kernel re-read all K*K taps and did an
+//     integer division per element).  Zero padding: rows outside the plane
+//     are skipped, and only the 32-column groups that touch an edge mask
+//     their columns.
+//   * Layout contract: x and g are contiguous NCHW; the wrapper copies
+//     anything else and counts the copy.  The K*K partials are reduced
+//     across a warp with shuffles, across warps in shared memory, across
+//     the cluster in distributed shared memory, all in a fixed order.
+//
+// Output: (C, K*K) float32, i.e. the (C, 1, K, K) weight layout.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "hopper.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-// the slab's cap: with the K*K x 8-warp reduction buffer the block stays
-// under the 48 KB a launch may use without an opt-in attribute
-constexpr int kSlabBytes = 46 * 1024;
+constexpr int kMaxStages = 4;
+constexpr int kMaxWarps = 8;
+constexpr int kMaxSmem = 232448;  // 227 KB, a block's most on sm_90
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-template <typename T, int K>
-__global__ void __launch_bounds__(kThreads)
-dw_filter_grad_partial_kernel(const T* __restrict__ x,
-                              const T* __restrict__ g,
-                              float* __restrict__ partial, int H, int W,
-                              int tile_h, int n_tiles, long long x_sb,
-                              long long x_sc, long long x_sh, long long x_sw,
-                              long long g_sb, long long g_sc, long long g_sh,
-                              long long g_sw) {
-  extern __shared__ float slab[];  // (rows + K - 1) x (W + K - 1)
-  __shared__ float red[kWarps][K * K];
-  constexpr int P = (K - 1) / 2;
-  const int tile = blockIdx.x;
-  const int c = blockIdx.y;
-  const int b = blockIdx.z;
-  const int h0 = tile * tile_h;
-  const int rows = min(tile_h, H - h0);
-  const int sw = W + K - 1;
-  const T* xb = x + b * x_sb + c * x_sc;
-  const T* gb = g + b * g_sb + c * g_sc;
+// mbarriers, the per-warp partials and the cluster partial, then the slots
+__host__ __device__ constexpr int header_bytes(int K) {
+  return (8 * kMaxStages + 4 * (kMaxWarps + 1) * K * K + 127) / 128 * 128;
+}
 
-  // x rows [h0 - P, h0 + rows + P), columns [-P, W + P), zeros outside
-  const int slab_n = (rows + K - 1) * sw;
-  for (int e = threadIdx.x; e < slab_n; e += kThreads) {
-    const int r = e / sw;
-    const int h = h0 + r - P;
-    const int w = e - r * sw - P;
-    float v = 0.f;
-    if (h >= 0 && h < H && w >= 0 && w < W) v = to_f32(xb[h * x_sh + w * x_sw]);
-    slab[e] = v;
+// The bytes [s, e) of one operand's band staged into a slot whose byte 0
+// holds global byte `base` (s rounded down to 16).  [lo, hi) is the bulk
+// copy: 16-byte aligned and inside the tensor's bytes [t0, t1); the rest of
+// [s, e) is the ragged part, copied by threads.  Mirrored by
+// `ops/dw_conv.py::staged_span`, which the CPU tests hold to these rules.
+struct Span {
+  uint64_t s, e, base, lo, hi;
+};
+
+__device__ __forceinline__ Span make_span(uint64_t s, uint64_t e, uint64_t t0,
+                                          uint64_t t1) {
+  Span sp;
+  sp.s = s;
+  sp.e = e;
+  sp.base = s & ~15ull;
+  sp.lo = sp.base >= t0 ? sp.base : (s + 15) & ~15ull;
+  const uint64_t up = (e + 15) & ~15ull;
+  sp.hi = up <= t1 ? up : e & ~15ull;
+  if (sp.hi <= sp.lo) sp.lo = sp.hi = e;  // no aligned run: all ragged
+  return sp;
+}
+
+// one thread's column, walked down one band: x rows [xa, xb) staged from
+// `xs` (row xa), g rows [h0, h1) from `gs` (row h0)
+template <typename T, int K, bool kEdge>
+__device__ __forceinline__ void walk_column(const T* xs, const T* gs, int xa,
+                                            int xb, int h0, int h1, int W,
+                                            int w, float (&acc)[K * K]) {
+  constexpr int P = (K - 1) / 2;
+  bool ok[K];
+#pragma unroll
+  for (int dc = 0; dc < K; ++dc)
+    ok[dc] = !kEdge || (unsigned)(w + dc - P) < (unsigned)W;
+  // gr[n % K] holds g row h0 + n, loaded at step n (0 past the band)
+  float gr[K];
+#pragma unroll
+  for (int u = 0; u < K; ++u) gr[u] = 0.f;
+  const T* gcol = gs + w;
+  const T* xcol = xs + (w - P);
+  const int end = h1 + P;
+
+  // step n = xr - (h0 - P): x row xr meets g rows xr + P - dr
+  auto step = [&](int u, int xr) {
+    const int hg = xr + P;
+    gr[u] = hg < h1 ? to_f32(gcol[(hg - h0) * W]) : 0.f;
+    if (xr >= xa && xr < xb) {
+      const T* row = xcol + (xr - xa) * W;
+      float xv[K];
+#pragma unroll
+      for (int dc = 0; dc < K; ++dc) xv[dc] = ok[dc] ? to_f32(row[dc]) : 0.f;
+#pragma unroll
+      for (int dr = 0; dr < K; ++dr) {
+        const float gv = gr[(u - dr + K) % K];
+#pragma unroll
+        for (int dc = 0; dc < K; ++dc)
+          acc[dr * K + dc] = fmaf(xv[dc], gv, acc[dr * K + dc]);
+      }
+    }
+  };
+
+  int xr = h0 - P;
+  for (; xr + K <= end; xr += K) {
+#pragma unroll
+    for (int u = 0; u < K; ++u) step(u, xr + u);
+  }
+#pragma unroll
+  for (int u = 0; u < K - 1; ++u)
+    if (xr + u < end) step(u, xr + u);
+}
+
+template <typename T, int K>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+dw_filter_grad_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                      float* __restrict__ out, int B, int C, int H, int W,
+                      int band_rows, int cluster, int stages, int x_slot,
+                      int g_slot) {
+  constexpr int P = (K - 1) / 2;
+  constexpr int KK = K * K;
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  float* red = reinterpret_cast<float*>(smem + 8 * kMaxStages);  // [warp][KK]
+  float* part = red + kMaxWarps * KK;                           // [KK]
+  unsigned char* slots = smem + header_bytes(K);
+
+  const int nw = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int c = blockIdx.x / cluster;
+  const int rank = blockIdx.x - c * cluster;
+  const int n_bands = (H + band_rows - 1) / band_rows;
+  const int total = B * n_bands;
+  // this block's bands: rank, rank + cluster, ... of the B * n_bands
+  const int mine = rank < total ? (total - rank + cluster - 1) / cluster : 0;
+  const uint64_t row_bytes = (uint64_t)W * sizeof(T);
+  const uint64_t plane_bytes = (uint64_t)H * row_bytes;
+  const uint64_t x0 = reinterpret_cast<uint64_t>(x);
+  const uint64_t g0 = reinterpret_cast<uint64_t>(g);
+  const uint64_t size = (uint64_t)B * C * plane_bytes;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) hopper::mbar_init(hopper::smem_u32(bars + s), 1);
+    hopper::mbar_fence_init();
   }
   __syncthreads();
 
-  float acc[K * K];
+  struct Band {
+    int h0, h1, xa, xb;
+    Span x, g;
+  };
+  auto band = [&](int i) {
+    const int j = rank + i * cluster;
+    const int b = j / n_bands;
+    Band bd;
+    bd.h0 = (j - b * n_bands) * band_rows;
+    bd.h1 = min(bd.h0 + band_rows, H);
+    bd.xa = max(bd.h0 - P, 0);
+    bd.xb = min(bd.h1 + P, H);
+    const uint64_t pl = ((uint64_t)b * C + c) * plane_bytes;
+    bd.x = make_span(x0 + pl + bd.xa * row_bytes, x0 + pl + bd.xb * row_bytes,
+                     x0, x0 + size);
+    bd.g = make_span(g0 + pl + bd.h0 * row_bytes, g0 + pl + bd.h1 * row_bytes,
+                     g0, g0 + size);
+    return bd;
+  };
+  auto ragged = [&](const Span& sp, unsigned char* slot) {
+    const int nh = sp.lo > sp.s ? (int)((sp.lo - sp.s) / sizeof(T)) : 0;
+    const int nt = sp.hi < sp.e ? (int)((sp.e - sp.hi) / sizeof(T)) : 0;
+    for (int t = threadIdx.x; t < nh + nt; t += blockDim.x) {
+      const uint64_t a = t < nh ? sp.s + t * sizeof(T)
+                                : sp.hi + (t - nh) * sizeof(T);
+      *reinterpret_cast<T*>(slot + (a - sp.base)) =
+          *reinterpret_cast<const T*>(a);
+    }
+  };
+  // stage this block's i-th band into slot i % stages
+  auto issue = [&](int i) {
+    const Band bd = band(i);
+    unsigned char* sx = slots + (size_t)(i % stages) * (x_slot + g_slot);
+    unsigned char* sg = sx + x_slot;
+    if (threadIdx.x == 0) {
+      const uint32_t bar = hopper::smem_u32(bars + i % stages);
+      // the slot's last readers were generic loads; order the copy after
+      hopper::fence_async_shared();
+      hopper::mbar_expect_tx(
+          bar, (uint32_t)((bd.x.hi - bd.x.lo) + (bd.g.hi - bd.g.lo)));
+      if (bd.x.hi > bd.x.lo)
+        hopper::bulk_load_1d(hopper::smem_u32(sx + (bd.x.lo - bd.x.base)),
+                             reinterpret_cast<const void*>(bd.x.lo),
+                             (uint32_t)(bd.x.hi - bd.x.lo), bar);
+      if (bd.g.hi > bd.g.lo)
+        hopper::bulk_load_1d(hopper::smem_u32(sg + (bd.g.lo - bd.g.base)),
+                             reinterpret_cast<const void*>(bd.g.lo),
+                             (uint32_t)(bd.g.hi - bd.g.lo), bar);
+    }
+    ragged(bd.x, sx);
+    ragged(bd.g, sg);
+  };
+
+  for (int i = 0; i < min(stages, mine); ++i) issue(i);
+
+  float acc[KK];
 #pragma unroll
-  for (int t = 0; t < K * K; ++t) acc[t] = 0.f;
-  const int n = rows * W;
-  for (int e = threadIdx.x; e < n; e += kThreads) {
-    const int r = e / W;
-    const int w = e - r * W;
-    const float gv = to_f32(gb[(h0 + r) * g_sh + w * g_sw]);
-    const float* s = slab + r * sw + w;  // x_pad[h0 + r][w], tap (0, 0)
-#pragma unroll
-    for (int dr = 0; dr < K; ++dr)
-#pragma unroll
-      for (int dc = 0; dc < K; ++dc)
-        acc[dr * K + dc] = fmaf(s[dr * sw + dc], gv, acc[dr * K + dc]);
+  for (int t = 0; t < KK; ++t) acc[t] = 0.f;
+  const int ncg = (W + 31) >> 5;
+  for (int i = 0; i < mine; ++i) {
+    hopper::mbar_wait(hopper::smem_u32(bars + i % stages), (i / stages) & 1);
+    __syncthreads();  // the ragged elements, stored by threads, are in
+    const Band bd = band(i);
+    const unsigned char* sx = slots + (size_t)(i % stages) * (x_slot + g_slot);
+    const T* xs = reinterpret_cast<const T*>(sx + (bd.x.s - bd.x.base));
+    const T* gs = reinterpret_cast<const T*>(sx + x_slot + (bd.g.s - bd.g.base));
+    for (int cg32 = warp; cg32 < ncg; cg32 += nw) {
+      const int w = cg32 * 32 + lane;
+      if (w >= W) continue;
+      if (cg32 * 32 < P || cg32 * 32 + 31 + P >= W)
+        walk_column<T, K, true>(xs, gs, bd.xa, bd.xb, bd.h0, bd.h1, W, w, acc);
+      else
+        walk_column<T, K, false>(xs, gs, bd.xa, bd.xb, bd.h0, bd.h1, W, w, acc);
+    }
+    __syncthreads();  // every thread is done with the slot
+    if (i + stages < mine) issue(i + stages);
   }
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
 #pragma unroll
-  for (int t = 0; t < K * K; ++t) {
+  for (int t = 0; t < KK; ++t) {
     float v = acc[t];
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
-      v += __shfl_down_sync(0xffffffffu, v, off);
-    if (lane == 0) red[warp][t] = v;
+      v += __shfl_xor_sync(0xffffffffu, v, off);
+    if (lane == 0) red[warp * KK + t] = v;
   }
   __syncthreads();
-  if (threadIdx.x < K * K) {
+  if (threadIdx.x < KK) {
     float s = 0.f;
-#pragma unroll
-    for (int i = 0; i < kWarps; ++i) s += red[i][threadIdx.x];
-    const long long row = (long long)c * gridDim.z * n_tiles +
-                          (long long)b * n_tiles + tile;
-    partial[row * (K * K) + threadIdx.x] = s;
+    for (int i = 0; i < nw; ++i) s += red[i * KK + threadIdx.x];
+    if (cluster == 1) {
+      out[(size_t)c * KK + threadIdx.x] = s;
+      return;
+    }
+    part[threadIdx.x] = s;
   }
-}
-
-// out[c * KK + t] = sum_j partial[(c * n_part + j) * KK + t], j in order
-__global__ void dw_filter_grad_sum_kernel(const float* __restrict__ partial,
-                                          float* __restrict__ out, int C,
-                                          int KK, int n_part) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= C * KK) return;
-  const int c = i / KK;
-  const int t = i - c * KK;
-  const float* p = partial + (long long)c * n_part * KK + t;
-  float s = 0.f;
-  for (int j = 0; j < n_part; ++j) s += p[(long long)j * KK];
-  out[i] = s;
+  if (cluster == 1) return;
+  cg::cluster_group cl = cg::this_cluster();
+  cl.sync();  // every block's partial is in its shared memory
+  if (rank == 0 && threadIdx.x < KK) {
+    float s = 0.f;
+    for (int r = 0; r < cluster; ++r)
+      s += cl.map_shared_rank(part, r)[threadIdx.x];
+    out[(size_t)c * KK + threadIdx.x] = s;
+  }
+  cl.sync();  // no block leaves while rank 0 reads its shared memory
 }
 
 template <typename T, int K>
-int launch(const void* x, const void* g, float* partial, float* out,
-           long long B, long long C, long long H, long long W,
-           long long tile_h, long long n_tiles, const long long* xs,
-           const long long* gs, cudaStream_t stream) {
-  const size_t smem = (size_t)(tile_h + K - 1) * (W + K - 1) * sizeof(float);
-  if (smem > (size_t)kSlabBytes) return -2;
-  const dim3 grid((unsigned)n_tiles, (unsigned)C, (unsigned)B);
-  dw_filter_grad_partial_kernel<T, K><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g), partial, (int)H,
-      (int)W, (int)tile_h, (int)n_tiles, xs[0], xs[1], xs[2], xs[3], gs[0],
-      gs[1], gs[2], gs[3]);
-  const int err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  const int KK = K * K;
-  const int total = (int)C * KK;
-  dw_filter_grad_sum_kernel<<<(total + 255) / 256, 256, 0, stream>>>(
-      partial, out, (int)C, KK, (int)(B * n_tiles));
+int launch(const void* x, const void* g, float* out, long long B, long long C,
+           long long H, long long W, int warps, int cluster, int band_rows,
+           int stages, int x_slot, int g_slot, cudaStream_t stream) {
+  auto kernel = dw_filter_grad_kernel<T, K>;
+  const long long smem =
+      header_bytes(K) + (long long)stages * (x_slot + g_slot);
+  const long long need_x = (long long)(band_rows + K - 1) * W * sizeof(T) + 32;
+  const long long need_g = (long long)band_rows * W * sizeof(T) + 32;
+  if (smem > kMaxSmem || x_slot < need_x || g_slot < need_g ||
+      x_slot % 16 || g_slot % 16)
+    return -2;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(C * cluster));
+  cfg.blockDim = dim3((unsigned)(32 * warps));
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(x),
+                           static_cast<const T*>(g), out, (int)B, (int)C,
+                           (int)H, (int)W, band_rows, cluster, stages, x_slot,
+                           g_slot);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_k(int k, const void* x, const void* g, float* partial,
-               float* out, long long B, long long C, long long H, long long W,
-               long long tile_h, long long n_tiles, const long long* xs,
-               const long long* gs, cudaStream_t stream) {
-  switch (k) {
-    case 3:
-      return launch<T, 3>(x, g, partial, out, B, C, H, W, tile_h, n_tiles,
-                          xs, gs, stream);
-    case 5:
-      return launch<T, 5>(x, g, partial, out, B, C, H, W, tile_h, n_tiles,
-                          xs, gs, stream);
-    default:
-      return -1;
-  }
+template <typename T, int K>
+int max_clusters(int warps, int cluster, int smem, int* n) {
+  auto kernel = dw_filter_grad_kernel<T, K>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)cluster);
+  cfg.blockDim = dim3((unsigned)(32 * warps));
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaOccupancyMaxActiveClusters(n, kernel, &cfg);
+}
+
+bool valid(int dtype, int k, int warps, int cluster, int stages) {
+  return (dtype == 0 || dtype == 1) && (k == 3 || k == 5) && warps >= 1 &&
+         warps <= kMaxWarps && stages >= 1 && stages <= kMaxStages &&
+         (cluster == 1 || cluster == 2 || cluster == 4 || cluster == 8);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x and g alike; partials and output are
-// float32).  tile_h rows of g per block, n_tiles = ceil(H / tile_h); the
-// partial buffer holds C * B * n_tiles * k * k floats.  Returns the CUDA
-// error code of the launches, -1 for an unsupported dtype or filter size,
-// -2 for a slab above 46 KB, -3 for a grid the hardware cannot launch.
-extern "C" int occ_dw_filter_grad(
-    const void* x, const void* g, float* partial, float* out, int dtype,
-    int k, long long B, long long C, long long H, long long W,
-    long long tile_h, long long n_tiles, long long x_sb, long long x_sc,
-    long long x_sh, long long x_sw, long long g_sb, long long g_sc,
-    long long g_sh, long long g_sw, cudaStream_t stream) {
+// x and g: contiguous (B, C, H, W), dtype 0 = float32, 1 = bfloat16; out:
+// (C, k*k) float32.  The plan (ops/dw_conv.py::dw_plan): `warps` per block,
+// `cluster` blocks per channel, bands of `band_rows` rows, a ring of
+// `stages` slots of `x_slot` + `g_slot` bytes.  Returns the CUDA error of
+// the launch, -1 for an unsupported dtype, filter size or plan, -2 for
+// slots that do not hold a band or exceed shared memory, -3 for a grid the
+// hardware cannot launch.
+extern "C" int occ_dw_filter_grad(const void* x, const void* g, float* out,
+                                  int dtype, int k, long long B, long long C,
+                                  long long H, long long W, int warps,
+                                  int cluster, int band_rows, int stages,
+                                  int x_slot, int g_slot,
+                                  cudaStream_t stream) {
+  if (!valid(dtype, k, warps, cluster, stages) || band_rows < 1) return -1;
   if (B == 0 || C == 0 || H == 0 || W == 0) return 0;
-  if (C > 65535 || B > 65535 || tile_h < 1 || n_tiles * tile_h < H) return -3;
-  const long long xs[4] = {x_sb, x_sc, x_sh, x_sw};
-  const long long gs[4] = {g_sb, g_sc, g_sh, g_sw};
+  if (C * cluster > 0x7fffffffLL || B * H > 0x7fffffffLL ||
+      (H * W) > 0x7fffffffLL)
+    return -3;
+  if (dtype == 0) {
+    return k == 3 ? launch<float, 3>(x, g, out, B, C, H, W, warps, cluster,
+                                     band_rows, stages, x_slot, g_slot, stream)
+                  : launch<float, 5>(x, g, out, B, C, H, W, warps, cluster,
+                                     band_rows, stages, x_slot, g_slot, stream);
+  }
+  return k == 3
+             ? launch<__nv_bfloat16, 3>(x, g, out, B, C, H, W, warps, cluster,
+                                        band_rows, stages, x_slot, g_slot,
+                                        stream)
+             : launch<__nv_bfloat16, 5>(x, g, out, B, C, H, W, warps, cluster,
+                                        band_rows, stages, x_slot, g_slot,
+                                        stream);
+}
+
+// How many clusters of the plan's shape the card holds at once (0: the
+// launch would fail with cudaErrorClusterOutOfResources); `smem` is the
+// block's dynamic shared memory, header included.
+extern "C" int occ_dw_filter_grad_max_clusters(int dtype, int k, int warps,
+                                               int cluster, int smem, int* n) {
+  if (!valid(dtype, k, warps, cluster, 1) || smem > kMaxSmem) return -1;
   if (dtype == 0)
-    return dispatch_k<float>(k, x, g, partial, out, B, C, H, W, tile_h,
-                             n_tiles, xs, gs, stream);
-  if (dtype == 1)
-    return dispatch_k<__nv_bfloat16>(k, x, g, partial, out, B, C, H, W,
-                                     tile_h, n_tiles, xs, gs, stream);
-  return -1;
+    return k == 3 ? max_clusters<float, 3>(warps, cluster, smem, n)
+                  : max_clusters<float, 5>(warps, cluster, smem, n);
+  return k == 3 ? max_clusters<__nv_bfloat16, 3>(warps, cluster, smem, n)
+                : max_clusters<__nv_bfloat16, 5>(warps, cluster, smem, n);
 }

@@ -168,6 +168,17 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// one contiguous run of `bytes` from global to shared memory, completion
+// counted on `bar`; source, destination and size multiples of 16 bytes
+__device__ __forceinline__ void bulk_load_1d(uint32_t dst, const void* src,
+                                             uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // shared -> global; elements outside the array are dropped
 __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
                                              uint32_t src, int c0, int c1,

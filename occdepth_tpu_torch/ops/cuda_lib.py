@@ -53,8 +53,10 @@ _SIGNATURES = {
         [_P, _P, _P, ctypes.c_int, ctypes.c_int] + [_I64] * 16 + [_P]
     ),
     "occ_dw_filter_grad": (
-        [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int] + [_I64] * 14 + [_P]
+        [_P, _P, _P, ctypes.c_int, ctypes.c_int] + [_I64] * 4
+        + [ctypes.c_int] * 6 + [_P]
     ),
+    "occ_dw_filter_grad_max_clusters": [ctypes.c_int] * 5 + [_P],
     "occ_conv3x3": [_P, _P, _P, _P, ctypes.c_int] + [_I64] * 5 + [_P],
     "occ_pack_nhwc": [_P, _P, ctypes.c_int] + [_I64] * 9 + [_P],
     "occ_row_gather": [_P, _P, _P, _I64, _I64, _I64, ctypes.c_int, _P],

@@ -10,8 +10,18 @@ dx from PyTorch's own convolution backward and dw from K4, as the JAX
 package's custom VJP takes dx from XLA and dw from its Pallas kernel.  For
 CPU tensors `dw_filter_grad` runs the plain PyTorch version; for CUDA
 tensors it launches the kernel or raises.
+
+The kernel takes contiguous NCHW planes (the encoder's layout); the wrapper
+copies anything else to that layout and counts the copy on
+`dw_filter_grad.copies`.  `dw_plan` is the launch's pure-Python plan:
+warps per block, blocks per channel (a thread-block cluster), band height
+and the ring of bulk-copy slots; `plan_bands` and `staged_span` mirror how
+the kernel walks and stages the bands, for the CPU tests.
 """
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -20,7 +30,12 @@ from occdepth_tpu_torch.ops import cuda_lib
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_SIZES = (3, 5)  # the EfficientNets' depthwise filters
-_SLAB_FLOATS = 11776  # the kernel's x slab: at most 46 KB of shared memory
+H100_SMS = 132
+MAX_CLUSTER = 8  # the portable cluster size
+MAX_WARPS = 8
+MAX_STAGES = 3
+SLOT_BYTES = 24 * 1024  # a band's x and g rows, at most (one ring slot)
+SMEM_BYTES = 232448  # a block's most shared memory on sm_90
 
 
 def dw_filter_grad_reference(x: torch.Tensor, g: torch.Tensor, kh: int,
@@ -38,10 +53,104 @@ def dw_filter_grad_reference(x: torch.Tensor, g: torch.Tensor, kh: int,
     return torch.stack(taps, dim=1).reshape(C, 1, kh, kw)
 
 
-def _slab_rows(W: int, k: int) -> int:
-    """Output rows per block of the kernel: the (rows + k - 1)-row x slab
-    with its halo fits in the kernel's shared memory."""
-    return _SLAB_FLOATS // (W + k - 1) - (k - 1)
+def _align(n: int, a: int) -> int:
+    return -(-n // a) * a
+
+
+@dataclasses.dataclass(frozen=True)
+class DwPlan:
+    """One K4 launch: `cluster` blocks of `warps` warps per channel, bands
+    of `band_rows` rows of g (their x rows plus the k - 1 halo rows), a
+    ring of `stages` slots of `x_slot` + `g_slot` bytes each."""
+
+    warps: int
+    cluster: int
+    band_rows: int
+    n_bands: int  # per (batch, channel) plane
+    stages: int
+    x_slot: int
+    g_slot: int
+    smem: int  # a block's dynamic shared memory, header included
+
+
+def _header_bytes(k: int) -> int:
+    """The kernel's mbarriers and partial sums ahead of the slots."""
+    return _align(8 * 4 + 4 * (MAX_WARPS + 1) * k * k, 128)
+
+
+def dw_plan(B: int, C: int, H: int, W: int, k: int, elem_size: int,
+            sms: int = H100_SMS) -> DwPlan:
+    """The launch for a (B, C, H, W) conv with a k x k filter.
+
+    A warp per 32-column group of the plane (at most 8; wider planes give
+    each warp several groups); blocks per channel doubled up to 8 until
+    the grid has two blocks per SM; then bands: a block whose grid is
+    already four blocks per SM deep takes whole planes, otherwise each
+    block gets about three bands, so that the ring overlaps copies with
+    arithmetic; a slot holds at most SLOT_BYTES.
+    """
+    ncg = -(-W // 32)
+    if ncg <= MAX_WARPS:
+        warps = ncg
+    else:  # the fewest idle group slots, then the most warps
+        warps = min(range(4, MAX_WARPS + 1),
+                    key=lambda d: (-(-ncg // d) * d - ncg, -d))
+    cluster = 1
+    while (cluster < MAX_CLUSTER and C * cluster < 2 * sms
+           and 2 * cluster <= B * H):
+        cluster *= 2
+    per_block = 1 if C * cluster >= 4 * sms else 3
+    rows = -(-H // min(H, -(-per_block * cluster // B)))
+    row_bytes = W * elem_size
+    rows = max(1, min(rows, (SLOT_BYTES // row_bytes - (k - 1)) // 2))
+    n_bands = -(-H // rows)
+    x_slot = _align((rows + k - 1) * row_bytes + 32, 16)
+    g_slot = _align(rows * row_bytes + 32, 16)
+    stages = min(MAX_STAGES, -(-B * n_bands // cluster))
+    while stages > 1 and (_header_bytes(k) + stages * (x_slot + g_slot)
+                          > SMEM_BYTES):
+        stages -= 1
+    smem = _header_bytes(k) + stages * (x_slot + g_slot)
+    if smem > SMEM_BYTES:
+        raise ValueError(f"dw_filter_grad: a {W}-wide row of {elem_size}-"
+                         "byte elements exceeds shared memory")
+    return DwPlan(warps, cluster, rows, n_bands, stages, x_slot, g_slot,
+                  smem)
+
+
+def plan_bands(plan: DwPlan, B: int, C: int, H: int) -> list:
+    """(channel, block rank, i, batch, h0, h1): the i-th band of each block
+    of the grid, in the kernel's order (bands rank, rank + cluster, ... of
+    the B * n_bands of a channel)."""
+    out = []
+    total = B * plan.n_bands
+    for c in range(C):
+        for rank in range(plan.cluster):
+            for i, j in enumerate(range(rank, total, plan.cluster)):
+                b, band = divmod(j, plan.n_bands)
+                h0 = band * plan.band_rows
+                out.append((c, rank, i, b, h0, min(h0 + plan.band_rows, H)))
+    return out
+
+
+def staged_span(s: int, e: int, t0: int, t1: int) -> tuple:
+    """(base, lo, hi) for the bytes [s, e) of a band staged from a tensor
+    occupying [t0, t1), as the kernel's `make_span` computes them: slot
+    byte 0 holds global byte `base` (s rounded down to 16), [lo, hi) is
+    the bulk copy (16-byte aligned, inside [t0, t1)), the rest of [s, e) is
+    copied element by element."""
+    base = s & ~15
+    lo = base if base >= t0 else (s + 15) & ~15
+    up = (e + 15) & ~15
+    hi = up if up <= t1 else e & ~15
+    if hi <= lo:
+        lo = hi = e
+    return base, lo, hi
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def dw_filter_grad(x: torch.Tensor, g: torch.Tensor, kh: int,
@@ -49,13 +158,13 @@ def dw_filter_grad(x: torch.Tensor, g: torch.Tensor, kh: int,
     """Filter gradient of a stride-1 SAME depthwise conv.
 
     Args:
-        x: (B, C, H, W) conv input, float32 or bfloat16, any strides.
-        g: (B, C, H, W) output cotangent, same dtype, any strides.
+        x: (B, C, H, W) conv input, float32 or bfloat16.
+        g: (B, C, H, W) output cotangent, same dtype.
         kh, kw: odd filter size (square, 3 or 5, on CUDA).
 
-    Returns (C, 1, kh, kw) float32.  On CUDA the result is deterministic:
-    per-block partial sums go to a scratch buffer that a second kernel
-    reduces in a fixed order.
+    Returns (C, 1, kh, kw) float32.  On CUDA: one launch, deterministic
+    (every sum in a fixed order); x and g that are not contiguous NCHW are
+    copied first, one count on `dw_filter_grad.copies` each.
     """
     if x.device.type == "cpu":
         return dw_filter_grad_reference(x, g, kh, kw)
@@ -71,21 +180,22 @@ def dw_filter_grad(x: torch.Tensor, g: torch.Tensor, kh: int,
     if kh != kw or kh not in _KERNEL_SIZES:
         raise ValueError(f"dw_filter_grad: filter {kh}x{kw} (square "
                          f"{_KERNEL_SIZES} on CUDA)")
-    rows = _slab_rows(W, kh)
-    if rows < 1:
-        raise ValueError(f"dw_filter_grad: width {W} exceeds the slab")
     if x.numel() == 0:
         return torch.zeros((C, 1, kh, kw), dtype=torch.float32,
                            device=x.device)
-    rows = min(rows, H)
-    n_tiles = -(-H // rows)
-    partial = torch.empty((C, B * n_tiles, kh * kw), dtype=torch.float32,
-                          device=x.device)
+    plan = dw_plan(B, C, H, W, kh, x.element_size(),
+                   _sm_count(x.device.index or 0))
+    if not x.is_contiguous():
+        x = x.contiguous()
+        dw_filter_grad.copies += 1
+    if not g.is_contiguous():
+        g = g.contiguous()
+        dw_filter_grad.copies += 1
     out = torch.empty((C, 1, kh, kw), dtype=torch.float32, device=x.device)
     rc = cuda_lib.library().occ_dw_filter_grad(
-        x.data_ptr(), g.data_ptr(), partial.data_ptr(), out.data_ptr(),
-        _DTYPE_CODE[x.dtype], kh, B, C, H, W, rows, n_tiles,
-        *x.stride(), *g.stride(),
+        x.data_ptr(), g.data_ptr(), out.data_ptr(), _DTYPE_CODE[x.dtype], kh,
+        B, C, H, W, plan.warps, plan.cluster, plan.band_rows, plan.stages,
+        plan.x_slot, plan.g_slot,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     cuda_lib.check(rc, "dw_filter_grad")
@@ -94,6 +204,7 @@ def dw_filter_grad(x: torch.Tensor, g: torch.Tensor, kh: int,
 
 
 dw_filter_grad.launches = 0
+dw_filter_grad.copies = 0
 
 
 class _DwConvFastGrad(torch.autograd.Function):

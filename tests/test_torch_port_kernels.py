@@ -27,9 +27,14 @@ from occdepth_tpu_torch.ops.crp_matmul import (
 )
 from occdepth_tpu_torch.ops.crp_matmul import wgmma_path
 from occdepth_tpu_torch.ops.dw_conv import (
+    MAX_CLUSTER,
+    SMEM_BYTES,
     dw_conv2d_fastgrad,
     dw_filter_grad,
     dw_filter_grad_reference,
+    dw_plan,
+    plan_bands,
+    staged_span,
     use_fast_dw_grad,
 )
 from occdepth_tpu_torch.ops.flosp_gather import (
@@ -241,29 +246,109 @@ def test_encoder_routes_stride1_dw_convs_through_k4():
         assert all(m.stride[0] == 1 for m in dws if m.fast_grad)
 
 
+# (B, C, H, W), k: the flagship encoder's ten distinct K4 convs (batch 1),
+# batch 2, and ragged planes (H < k, W < k, W = 1, a 7x5x3 k5 plane)
+FLAGSHIP_DW = [((1, 40, 185, 610), 3), ((1, 24, 185, 610), 3),
+               ((1, 192, 93, 305), 3), ((1, 288, 47, 153), 5),
+               ((1, 576, 24, 77), 3), ((1, 576, 24, 77), 5),
+               ((1, 816, 24, 77), 5), ((1, 1392, 12, 39), 5),
+               ((1, 1392, 12, 39), 3), ((1, 2304, 12, 39), 3)]
+RAGGED_DW = [((2, 288, 47, 153), 5), ((2, 40, 185, 610), 3),
+             ((2, 5, 2, 9), 5), ((3, 6, 11, 2), 5), ((2, 3, 7, 1), 3),
+             ((1, 7, 5, 3), 5)]
+
+
+@pytest.mark.parametrize("shape,k", FLAGSHIP_DW + RAGGED_DW)
+def test_dw_plan_covers_each_row_once_and_stages_aligned_spans(shape, k):
+    """K4's launch plan: every (b, c, row) of g in exactly one band, each
+    band's staged x span holds the band's rows and halo rows, bulk copies
+    16-byte aligned and inside the tensor (also for a view that starts
+    three elements into its storage), the ragged rest copied apart, the slots
+    large enough, clusters of 1-8 blocks and the grid two blocks per SM
+    deep where the plane has rows enough to split."""
+    B, C, H, W = shape
+    P = (k - 1) // 2
+    for es in (2, 4):
+        plan = dw_plan(B, C, H, W, k, es)
+        assert plan.cluster in (1, 2, 4, 8) and plan.cluster <= MAX_CLUSTER
+        assert 1 <= plan.warps <= 8 and plan.smem <= SMEM_BYTES
+        assert (C * plan.cluster >= 2 * 132 or plan.cluster == MAX_CLUSTER
+                or 2 * plan.cluster > B * H)
+        bands = plan_bands(plan, B, C, H)
+        per_block = {}
+        for c, rank, i, b, h0, h1 in bands:
+            per_block[c, rank] = per_block.get((c, rank), 0) + 1
+        assert 1 <= plan.stages <= max(per_block.values())
+        seen = np.zeros((B, C, H), np.int64)
+        row, plane = W * es, H * W * es
+        for offset in (0, 3 * es):  # a view may start inside its storage
+            t0 = 4096 + offset
+            t1 = t0 + B * C * plane
+            for c, rank, i, b, h0, h1 in bands:
+                if offset == 0:
+                    seen[b, c, h0:h1] += 1
+                assert 0 < h1 - h0 <= plan.band_rows
+                xa, xb = max(h0 - P, 0), min(h1 + P, H)
+                for (ra, rb), slot in (((xa, xb), plan.x_slot),
+                                       ((h0, h1), plan.g_slot)):
+                    pl = t0 + (b * C + c) * plane
+                    s, e = pl + ra * row, pl + rb * row
+                    base, lo, hi = staged_span(s, e, t0, t1)
+                    assert base <= s and base % 16 == 0
+                    assert hi == lo or (lo % 16 == 0 and hi % 16 == 0)
+                    assert t0 <= lo <= hi <= t1
+                    assert max(hi, e) - base <= slot and slot % 16 == 0
+                    # bulk [lo, hi) and the ragged ends cover [s, e) once
+                    ragged = max(0, min(lo, e) - s) + max(0, e - max(hi, s))
+                    assert ragged + (min(hi, e) - max(lo, s)
+                                     if hi > lo else 0) == e - s
+                    assert ragged % es == 0 and ragged < 32
+        assert (seen == 1).all()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,k", [((1, 40, 185, 610), 3),
-                                     ((2, 288, 47, 153), 5),
-                                     ((1, 2304, 12, 39), 3),
-                                     ((1, 7, 5, 3), 5)])
+@pytest.mark.parametrize("shape,k", FLAGSHIP_DW + RAGGED_DW)
 def test_dw_filter_grad_kernel_matches_plain(cuda_device, dtype, shape, k):
     g = torch.Generator(device=cuda_device).manual_seed(2)
     x = torch.randn(*shape, device=cuda_device, generator=g).to(dtype)
     gy = torch.randn(*shape, device=cuda_device, generator=g).to(dtype)
     before = dw_filter_grad.launches
     out = dw_filter_grad(x, gy, k, k)
+    assert dw_filter_grad.launches == before + 1  # one launch per call
     again = dw_filter_grad(x, gy, k, k)
     torch.cuda.synchronize()
     assert dw_filter_grad.launches == before + 2
     assert torch.equal(out, again)  # fixed-order reduction: deterministic
     ref = dw_filter_grad_reference(x.float(), gy.float(), k, k)
     assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
-    # strided (channels-last) inputs through their strides
+    # channels-last inputs are copied to NCHW first, and counted
     xc = x.contiguous(memory_format=torch.channels_last)
     gc = gy.contiguous(memory_format=torch.channels_last)
+    copies = dw_filter_grad.copies
     assert (dw_filter_grad(xc, gc, k, k) - ref).abs().max().item() <= \
         1e-4 * ref.abs().max().item()
+    if not xc.is_contiguous():
+        assert dw_filter_grad.copies == copies + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dw_plan_clusters_fit_the_card(cuda_device, dtype):
+    """Every flagship plan's cluster can be resident (a cluster that
+    cannot fails at launch with cudaErrorClusterOutOfResources)."""
+    import ctypes
+
+    from occdepth_tpu_torch.ops import cuda_lib
+
+    es = 2 if dtype == torch.bfloat16 else 4
+    for (B, C, H, W), k in FLAGSHIP_DW + RAGGED_DW:
+        plan = dw_plan(B, C, H, W, k, es)
+        n = ctypes.c_int(0)
+        rc = cuda_lib.library().occ_dw_filter_grad_max_clusters(
+            1 if es == 2 else 0, k, plan.warps, plan.cluster, plan.smem,
+            ctypes.byref(n))
+        assert rc == 0 and n.value >= 1, (B, C, H, W, k, plan, rc)
 
 
 @pytest.mark.cuda
