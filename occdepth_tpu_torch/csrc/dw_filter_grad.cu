@@ -7,47 +7,56 @@
 // `dw_filter_grad_pallas` (body `_dwgrad_kernel`), the encoder backward's
 // depthwise filter gradient under dw_conv_grad=pallas.
 //
-// What bounds it on Hopper: device-memory bytes.  Each element of g costs
-// 2*K*K flops against one read of x and one of g, 4.5 (K=3) to 12.5 (K=5)
-// flops per byte in bf16, below the ~20 where fp32 arithmetic would bound
-// it.  The flagship encoder's 22 convs move 0.0465 ms of bytes in all, and
-// 16 of them less than 2 us each, so a launch's fixed cost and each
-// block's overheads matter as much as the bytes.  What the design does:
+// What bounds it on Hopper: device-memory bytes, and, at these sizes, a
+// launch's fixed cost.  Each element of g costs 2*K*K flops against one
+// read of x and one of g, 4.5 (K=3) to 12.5 (K=5) flops per byte in bf16,
+// below the ~20 where fp32 arithmetic would bound it.  The flagship
+// encoder's 22 convs move 0.0465 ms of bytes in all, 16 of them less than
+// 2 us each, so the fixed cost of a launch, of a block and of the K*K
+// fmas' issue slots decide most of them.  What the design does about the
+// previous kernel's five costs:
 //
-//   * One launch per conv, no scratch buffer, no atomics.  The blocks that
-//     share a channel's plane form a thread-block cluster (1, 2, 4 or 8
-//     blocks); after a cluster barrier block rank 0 sums the others' K*K
-//     partials from distributed shared memory in rank order.  Every sum is
-//     taken in a fixed order, so the result is the same on every run.
-//   * Work sized to the plane.  A unit is (batch, channel, band of rows);
-//     the wrapper's plan (`ops/dw_conv.py::dw_plan`) picks the cluster and
-//     the band height so that the grid fills the SMs: small planes (the
-//     24x77 and 12x39 stages) are one band per block, with as many warps as
-//     the plane has 32-column groups, so no block is mostly reduction;
-//     large planes (185x610, 93x305) are cut into bands over the blocks of
-//     a cluster.
-//   * Staging by bulk copies.  In NCHW a band's rows, halo rows included,
-//     are one contiguous span; one thread stages it with one
-//     `cp.async.bulk` per operand (start rounded down, end rounded up to 16
-//     bytes, completion on an mbarrier) into a ring of up to 4 slots that is
-//     filled ahead, so the next bands' copies run under this band's
-//     arithmetic.  Rows and planes are not 16-byte aligned (flagship row
-//     strides of 1220, 610, 306, 154 and 78 bytes), so the span is copied
-//     as it lies and indexed at its offset; the rounding never reaches
-//     outside the tensor: where it would, the few ragged elements are
-//     copied by threads.  bf16 stays bf16 in shared memory.
-//   * Taps from registers.  A lane owns a column and walks down the band:
-//     each x row's K values are read once and multiplied by the K rows of
-//     g that use them, kept in a ring of K registers that the unrolled loop
-//     indexes at compile time, so an element of g costs K + 1 shared loads
-//     for K*K fmas (the previous kernel re-read all K*K taps and did an
-//     integer division per element).  Zero padding: rows outside the plane
-//     are skipped, and only the 32-column groups that touch an edge mask
-//     their columns.
-//   * Layout contract: x and g are contiguous NCHW; the wrapper copies
-//     anything else and counts the copy.  The K*K partials are reduced
-//     across a warp with shuffles, across warps in shared memory, across
-//     the cluster in distributed shared memory, all in a fixed order.
+//   1. One launch per conv, no scratch buffer, no atomics (the previous
+//      kernel wrote partials and summed them in a second launch).  A
+//      channel whose plane is split over blocks has them in one
+//      thread-block cluster (2, 4 or 8 blocks); after a cluster barrier
+//      block rank 0 sums the others' K*K partials from distributed shared
+//      memory in rank order.  Every sum is taken in a fixed order, so the
+//      result is the same on every run.
+//   2. Work sized to the plane (the previous kernel gave each channel of
+//      every plane 256 threads).  A unit is (batch, channel, band of rows);
+//      the wrapper's plan (`ops/dw_conv.py::dw_plan`) gives a block a warp
+//      per 64 columns and a whole plane, and splits planes over a
+//      cluster only while the grid is under two blocks per SM (a cluster's
+//      launch and barriers cost more than the 24x77 and 12x39 planes'
+//      work): the 185x610 planes go to clusters of 8, the 93x305 ones to
+//      pairs, each block taking two bands.
+//   3. Staging by bulk copies, filled ahead (the previous kernel loaded,
+//      then computed).  In NCHW a band's rows, halo rows included, are one
+//      contiguous span; one thread stages it with one `cp.async.bulk` per
+//      operand (start rounded down, end rounded up to 16 bytes, completion
+//      on an mbarrier) into a ring of slots, all of a block's bands at
+//      once where they fit.  Rows and planes are not 16-byte aligned
+//      (flagship row strides of 1220, 610, 306, 154 and 78 bytes), so a
+//      span is copied as it lies and indexed at its offset; the rounding
+//      never reaches outside the tensor: where it would, the few ragged
+//      elements are copied by threads.  bf16 stays bf16 in shared memory.
+//   4. No per-element index arithmetic (the previous kernel divided by W
+//      per element): a lane owns a strip of V = 2 adjacent columns and
+//      walks down its band.
+//   5. Taps from registers (the previous kernel read K*K + 1 values per K*K
+//      fmas): each x row's V + K - 1 values are read once and multiplied
+//      by the K rows of g that use them, kept in a ring of K x V registers
+//      that the unrolled loop indexes at compile time, K*K*V fmas for
+//      V + K - 1 + V shared loads.  Zero padding: only the first and last
+//      K - 1 steps of a walk can reach rows outside the band or the plane,
+//      so only they are checked; only the column groups that touch an edge
+//      mask their columns.
+//
+// Layout contract: x and g are contiguous NCHW; the wrapper copies
+// anything else and counts the copy.  The K*K partials are reduced across
+// a warp with shuffles, across warps in shared memory, across the cluster
+// in distributed shared memory, all in a fixed order.
 //
 // Output: (C, K*K) float32, i.e. the (C, 1, K, K) weight layout.
 #include <cooperative_groups.h>
@@ -62,13 +71,15 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kMaxStages = 4;
-constexpr int kMaxWarps = 8;
+constexpr int kMaxWarps = 16;
 constexpr int kMaxSmem = 232448;  // 227 KB, a block's most on sm_90
+constexpr int kCols = 2;  // adjacent output columns a lane owns
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+
 
 // mbarriers, the per-warp partials and the cluster partial, then the slots
 __host__ __device__ constexpr int header_bytes(int K) {
@@ -97,55 +108,85 @@ __device__ __forceinline__ Span make_span(uint64_t s, uint64_t e, uint64_t t0,
   return sp;
 }
 
-// one thread's column, walked down one band: x rows [xa, xb) staged from
-// `xs` (row xa), g rows [h0, h1) from `gs` (row h0)
-template <typename T, int K, bool kEdge>
-__device__ __forceinline__ void walk_column(const T* xs, const T* gs, int xa,
-                                            int xb, int h0, int h1, int W,
-                                            int w, float (&acc)[K * K]) {
+// one lane's strip of V columns [w, w + V), walked down rows [h0, h1) of
+// g (from `gs`, row h0) with the staged x rows [xa, xb) (from `xs`, row
+// xa).  Step n (n = 0 .. h1 - h0 + K - 2) loads g row h0 + n into the ring
+// gr[n % K] and reads x row h0 - P + n, which meets g rows h0 + n - dr for
+// dr = 0 .. K-1.  The first K - 1 steps and the last ones may reach rows
+// outside the band (g: zeros) or the plane (x: no fmas); the steps between
+// run in unrolled groups of K with no checks, the ring indexed at compile
+// time, so their loads can run ahead.
+template <typename T, int K, int V, bool kEdge>
+__device__ __forceinline__ void walk_strip(const T* xs, const T* gs, int xa,
+                                           int xb, int h0, int h1, int W,
+                                           int w, float (&acc)[K * K]) {
   constexpr int P = (K - 1) / 2;
-  bool ok[K];
+  constexpr int NX = V + K - 1;
+  bool okx[NX], okg[V];
 #pragma unroll
-  for (int dc = 0; dc < K; ++dc)
-    ok[dc] = !kEdge || (unsigned)(w + dc - P) < (unsigned)W;
-  // gr[n % K] holds g row h0 + n, loaded at step n (0 past the band)
-  float gr[K];
+  for (int j = 0; j < NX; ++j)
+    okx[j] = !kEdge || (unsigned)(w + j - P) < (unsigned)W;
 #pragma unroll
-  for (int u = 0; u < K; ++u) gr[u] = 0.f;
-  const T* gcol = gs + w;
-  const T* xcol = xs + (w - P);
-  const int end = h1 + P;
+  for (int v = 0; v < V; ++v) okg[v] = !kEdge || w + v < W;
+  float gr[K][V];
+#pragma unroll
+  for (int u = 0; u < K; ++u)
+#pragma unroll
+    for (int v = 0; v < V; ++v) gr[u][v] = 0.f;
 
-  // step n = xr - (h0 - P): x row xr meets g rows xr + P - dr
-  auto step = [&](int u, int xr) {
-    const int hg = xr + P;
-    gr[u] = hg < h1 ? to_f32(gcol[(hg - h0) * W]) : 0.f;
-    if (xr >= xa && xr < xb) {
-      const T* row = xcol + (xr - xa) * W;
-      float xv[K];
+  auto load_g = [&](int u, const T* grow) {
 #pragma unroll
-      for (int dc = 0; dc < K; ++dc) xv[dc] = ok[dc] ? to_f32(row[dc]) : 0.f;
+    for (int v = 0; v < V; ++v) gr[u][v] = okg[v] ? to_f32(grow[v]) : 0.f;
+  };
+  // the x row at `xrow` (column w - P) times the ring, gr[u] the newest
+  auto fma_x = [&](int u, const T* xrow) {
+    float xv[NX];
 #pragma unroll
-      for (int dr = 0; dr < K; ++dr) {
-        const float gv = gr[(u - dr + K) % K];
+    for (int j = 0; j < NX; ++j) xv[j] = okx[j] ? to_f32(xrow[j]) : 0.f;
+#pragma unroll
+    for (int dr = 0; dr < K; ++dr)
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const float gv = gr[(u - dr + K) % K][v];
 #pragma unroll
         for (int dc = 0; dc < K; ++dc)
-          acc[dr * K + dc] = fmaf(xv[dc], gv, acc[dr * K + dc]);
+          acc[dr * K + dc] = fmaf(xv[v + dc], gv, acc[dr * K + dc]);
       }
+  };
+  const int R = h1 - h0;
+  auto checked = [&](int u, int n) {
+    if (n < R) {
+      load_g(u, gs + n * W + w);
+    } else {
+#pragma unroll
+      for (int v = 0; v < V; ++v) gr[u][v] = 0.f;
     }
+    const int xr = h0 - P + n;
+    if (xr >= xa && xr < xb) fma_x(u, xs + (xr - xa) * W + (w - P));
   };
 
-  int xr = h0 - P;
-  for (; xr + K <= end; xr += K) {
 #pragma unroll
-    for (int u = 0; u < K; ++u) step(u, xr + u);
+  for (int u = 0; u < K - 1; ++u) checked(u, u);
+  // steps K-1 .. R-1: x rows h0 + P .. h1 - P - 1 and g rows h0 + K - 1 ..
+  // h1 - 1 all lie in the band and the plane
+  int n = K - 1;
+  const T* gp = gs + n * W + w;
+  const T* xp = xs + (h0 - P + n - xa) * W + (w - P);
+  for (; n + K <= R; n += K, gp += K * W, xp += K * W) {
+#pragma unroll
+    for (int u = 0; u < K; ++u) {
+      load_g((K - 1 + u) % K, gp + u * W);
+      fma_x((K - 1 + u) % K, xp + u * W);
+    }
   }
+  // at most 2K - 2 steps remain, n % K == K - 1 still
+  const int steps = R + K - 1;
 #pragma unroll
-  for (int u = 0; u < K - 1; ++u)
-    if (xr + u < end) step(u, xr + u);
+  for (int u = 0; u < 2 * K - 2; ++u)
+    if (n + u < steps) checked((K - 1 + u) % K, n + u);
 }
 
-template <typename T, int K>
+template <typename T, int K, int V>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 dw_filter_grad_kernel(const T* __restrict__ x, const T* __restrict__ g,
                       float* __restrict__ out, int B, int C, int H, int W,
@@ -238,7 +279,8 @@ dw_filter_grad_kernel(const T* __restrict__ x, const T* __restrict__ g,
   float acc[KK];
 #pragma unroll
   for (int t = 0; t < KK; ++t) acc[t] = 0.f;
-  const int ncg = (W + 31) >> 5;
+  constexpr int SW = 32 * V;  // columns of a warp's strip group
+  const int ncg = (W + SW - 1) / SW;
   for (int i = 0; i < mine; ++i) {
     hopper::mbar_wait(hopper::smem_u32(bars + i % stages), (i / stages) & 1);
     __syncthreads();  // the ragged elements, stored by threads, are in
@@ -246,13 +288,15 @@ dw_filter_grad_kernel(const T* __restrict__ x, const T* __restrict__ g,
     const unsigned char* sx = slots + (size_t)(i % stages) * (x_slot + g_slot);
     const T* xs = reinterpret_cast<const T*>(sx + (bd.x.s - bd.x.base));
     const T* gs = reinterpret_cast<const T*>(sx + x_slot + (bd.g.s - bd.g.base));
-    for (int cg32 = warp; cg32 < ncg; cg32 += nw) {
-      const int w = cg32 * 32 + lane;
+    for (int grp = warp; grp < ncg; grp += nw) {
+      const int w = grp * SW + lane * V;
       if (w >= W) continue;
-      if (cg32 * 32 < P || cg32 * 32 + 31 + P >= W)
-        walk_column<T, K, true>(xs, gs, bd.xa, bd.xb, bd.h0, bd.h1, W, w, acc);
+      if (grp * SW < P || grp * SW + SW - 1 + P >= W)
+        walk_strip<T, K, V, true>(xs, gs, bd.xa, bd.xb, bd.h0, bd.h1, W, w,
+                                  acc);
       else
-        walk_column<T, K, false>(xs, gs, bd.xa, bd.xb, bd.h0, bd.h1, W, w, acc);
+        walk_strip<T, K, V, false>(xs, gs, bd.xa, bd.xb, bd.h0, bd.h1, W, w,
+                                   acc);
     }
     __syncthreads();  // every thread is done with the slot
     if (i + stages < mine) issue(i + stages);
@@ -288,13 +332,34 @@ dw_filter_grad_kernel(const T* __restrict__ x, const T* __restrict__ g,
   cl.sync();  // no block leaves while rank 0 reads its shared memory
 }
 
-template <typename T, int K>
+// a block's dynamic shared memory: header, `stages` slots
+long long smem_bytes(int K, int stages, int x_slot, int g_slot) {
+  return header_bytes(K) + (long long)stages * (x_slot + g_slot);
+}
+
+cudaLaunchConfig_t launch_config(long long blocks, int warps, int cluster,
+                                 long long smem, cudaStream_t stream,
+                                 cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3((unsigned)(32 * warps));
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = (unsigned)cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
+  return cfg;
+}
+
+template <typename T, int K, int V>
 int launch(const void* x, const void* g, float* out, long long B, long long C,
            long long H, long long W, int warps, int cluster, int band_rows,
            int stages, int x_slot, int g_slot, cudaStream_t stream) {
-  auto kernel = dw_filter_grad_kernel<T, K>;
-  const long long smem =
-      header_bytes(K) + (long long)stages * (x_slot + g_slot);
+  auto kernel = dw_filter_grad_kernel<T, K, V>;
+  const long long smem = smem_bytes(K, stages, x_slot, g_slot);
   const long long need_x = (long long)(band_rows + K - 1) * W * sizeof(T) + 32;
   const long long need_g = (long long)band_rows * W * sizeof(T) + 32;
   if (smem > kMaxSmem || x_slot < need_x || g_slot < need_g ||
@@ -303,18 +368,9 @@ int launch(const void* x, const void* g, float* out, long long B, long long C,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(C * cluster));
-  cfg.blockDim = dim3((unsigned)(32 * warps));
-  cfg.dynamicSmemBytes = (size_t)smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = cluster > 1 ? 1 : 0;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      launch_config(C * cluster, warps, cluster, smem, stream, &attr);
   err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(x),
                            static_cast<const T*>(g), out, (int)B, (int)C,
                            (int)H, (int)W, band_rows, cluster, stages, x_slot,
@@ -323,24 +379,31 @@ int launch(const void* x, const void* g, float* out, long long B, long long C,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int K>
+template <typename T, int K, int V>
 int max_clusters(int warps, int cluster, int smem, int* n) {
-  auto kernel = dw_filter_grad_kernel<T, K>;
+  auto kernel = dw_filter_grad_kernel<T, K, V>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)cluster);
-  cfg.blockDim = dim3((unsigned)(32 * warps));
-  cfg.dynamicSmemBytes = (size_t)smem;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg =
+      launch_config(cluster, warps, cluster, smem, 0, &attr);
   cfg.numAttrs = 1;
   return (int)cudaOccupancyMaxActiveClusters(n, kernel, &cfg);
+}
+
+template <typename T, int K>
+struct Kind {
+  using type = T;
+  static constexpr int k = K;
+};
+
+// f(Kind<T, K>{}) for the dtype code and filter size
+template <typename F>
+int dispatch(int dtype, int k, F&& f) {
+  using bf16 = __nv_bfloat16;
+  if (dtype == 0) return k == 3 ? f(Kind<float, 3>{}) : f(Kind<float, 5>{});
+  return k == 3 ? f(Kind<bf16, 3>{}) : f(Kind<bf16, 5>{});
 }
 
 bool valid(int dtype, int k, int warps, int cluster, int stages) {
@@ -352,12 +415,12 @@ bool valid(int dtype, int k, int warps, int cluster, int stages) {
 }  // namespace
 
 // x and g: contiguous (B, C, H, W), dtype 0 = float32, 1 = bfloat16; out:
-// (C, k*k) float32.  The plan (ops/dw_conv.py::dw_plan): `warps` per block,
-// `cluster` blocks per channel, bands of `band_rows` rows, a ring of
-// `stages` slots of `x_slot` + `g_slot` bytes.  Returns the CUDA error of
-// the launch, -1 for an unsupported dtype, filter size or plan, -2 for
-// slots that do not hold a band or exceed shared memory, -3 for a grid the
-// hardware cannot launch.
+// (C, k*k) float32.  The plan (ops/dw_conv.py::dw_plan): `warps` per
+// block, `cluster` blocks per channel, bands of `band_rows` rows, a ring of
+// `stages` slots of `x_slot` + `g_slot` bytes.
+// Returns the CUDA error of the launch, -1 for an unsupported dtype, filter
+// size or plan, -2 for slots that do not hold a band or exceed shared
+// memory, -3 for a grid the hardware cannot launch.
 extern "C" int occ_dw_filter_grad(const void* x, const void* g, float* out,
                                   int dtype, int k, long long B, long long C,
                                   long long H, long long W, int warps,
@@ -367,32 +430,25 @@ extern "C" int occ_dw_filter_grad(const void* x, const void* g, float* out,
   if (!valid(dtype, k, warps, cluster, stages) || band_rows < 1) return -1;
   if (B == 0 || C == 0 || H == 0 || W == 0) return 0;
   if (C * cluster > 0x7fffffffLL || B * H > 0x7fffffffLL ||
-      (H * W) > 0x7fffffffLL)
+      H * W > 0x7fffffffLL)
     return -3;
-  if (dtype == 0) {
-    return k == 3 ? launch<float, 3>(x, g, out, B, C, H, W, warps, cluster,
-                                     band_rows, stages, x_slot, g_slot, stream)
-                  : launch<float, 5>(x, g, out, B, C, H, W, warps, cluster,
-                                     band_rows, stages, x_slot, g_slot, stream);
-  }
-  return k == 3
-             ? launch<__nv_bfloat16, 3>(x, g, out, B, C, H, W, warps, cluster,
-                                        band_rows, stages, x_slot, g_slot,
-                                        stream)
-             : launch<__nv_bfloat16, 5>(x, g, out, B, C, H, W, warps, cluster,
-                                        band_rows, stages, x_slot, g_slot,
-                                        stream);
+  return dispatch(dtype, k, [&](auto kind) {
+    using Kd = decltype(kind);
+    return launch<typename Kd::type, Kd::k, kCols>(
+        x, g, out, B, C, H, W, warps, cluster, band_rows, stages, x_slot,
+        g_slot, stream);
+  });
 }
 
-// How many clusters of the plan's shape the card holds at once (0: the
-// launch would fail with cudaErrorClusterOutOfResources); `smem` is the
-// block's dynamic shared memory, header included.
+// How many clusters of a plan's shape the card holds at once (0: the launch
+// would fail with cudaErrorClusterOutOfResources); `smem` is the block's
+// dynamic shared memory (`DwPlan.smem`).
 extern "C" int occ_dw_filter_grad_max_clusters(int dtype, int k, int warps,
                                                int cluster, int smem, int* n) {
   if (!valid(dtype, k, warps, cluster, 1) || smem > kMaxSmem) return -1;
-  if (dtype == 0)
-    return k == 3 ? max_clusters<float, 3>(warps, cluster, smem, n)
-                  : max_clusters<float, 5>(warps, cluster, smem, n);
-  return k == 3 ? max_clusters<__nv_bfloat16, 3>(warps, cluster, smem, n)
-                : max_clusters<__nv_bfloat16, 5>(warps, cluster, smem, n);
+  return dispatch(dtype, k, [&](auto kind) {
+    using Kd = decltype(kind);
+    return max_clusters<typename Kd::type, Kd::k, kCols>(warps, cluster, smem,
+                                                         n);
+  });
 }

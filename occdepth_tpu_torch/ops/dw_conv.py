@@ -32,9 +32,12 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_SIZES = (3, 5)  # the EfficientNets' depthwise filters
 H100_SMS = 132
 MAX_CLUSTER = 8  # the portable cluster size
-MAX_WARPS = 8
+MAX_WARPS = 16
 MAX_STAGES = 3
-SLOT_BYTES = 24 * 1024  # a band's x and g rows, at most (one ring slot)
+COLS = 2  # adjacent output columns a lane owns (the kernel's kCols)
+BLOCKS_PER_SM = 2  # the grid's aim before a channel's plane is split
+BANDS_PER_BLOCK = 2  # the ring's depth for planes of more than a slot
+SLOT_BYTES = 32 * 1024  # a band's x and g rows, at most (one ring slot)
 SMEM_BYTES = 232448  # a block's most shared memory on sm_90
 
 
@@ -70,7 +73,7 @@ class DwPlan:
     stages: int
     x_slot: int
     g_slot: int
-    smem: int  # a block's dynamic shared memory, header included
+    smem: int  # a block's dynamic shared memory, as the kernel lays it out
 
 
 def _header_bytes(k: int) -> int:
@@ -78,39 +81,44 @@ def _header_bytes(k: int) -> int:
     return _align(8 * 4 + 4 * (MAX_WARPS + 1) * k * k, 128)
 
 
+@functools.lru_cache(maxsize=256)
 def dw_plan(B: int, C: int, H: int, W: int, k: int, elem_size: int,
-            sms: int = H100_SMS) -> DwPlan:
+            sms: int = H100_SMS, *, blocks_per_sm: int = BLOCKS_PER_SM,
+            bands_per_block: int = BANDS_PER_BLOCK) -> DwPlan:
     """The launch for a (B, C, H, W) conv with a k x k filter.
 
-    A warp per 32-column group of the plane (at most 8; wider planes give
-    each warp several groups); blocks per channel doubled up to 8 until
-    the grid has two blocks per SM; then bands: a block whose grid is
-    already four blocks per SM deep takes whole planes, otherwise each
-    block gets about three bands, so that the ring overlaps copies with
-    arithmetic; a slot holds at most SLOT_BYTES.
+    A warp per group of 64 columns (each lane owns COLS = 2; at most
+    MAX_WARPS warps, wider planes give each warp several groups).  A block
+    per channel, and blocks per channel (a cluster) doubled up to 8 only
+    while the grid has fewer than `blocks_per_sm` blocks per SM: a
+    cluster's launch and barriers cost more than the small planes' work.
+    Then bands: planes larger than a slot are cut into about
+    `bands_per_block` bands per block, so that the ring overlaps copies
+    with arithmetic, smaller ones into one band per block.  A slot holds
+    at most SLOT_BYTES.
     """
-    ncg = -(-W // 32)
-    if ncg <= MAX_WARPS:
-        warps = ncg
+    groups = -(-W // (32 * COLS))
+    if groups <= MAX_WARPS:
+        warps = groups
     else:  # the fewest idle group slots, then the most warps
-        warps = min(range(4, MAX_WARPS + 1),
-                    key=lambda d: (-(-ncg // d) * d - ncg, -d))
+        warps = min(range(MAX_WARPS // 2, MAX_WARPS + 1),
+                    key=lambda d: (-(-groups // d) * d - groups, -d))
     cluster = 1
-    while (cluster < MAX_CLUSTER and C * cluster < 2 * sms
+    while (cluster < MAX_CLUSTER and C * cluster < blocks_per_sm * sms
            and 2 * cluster <= B * H):
         cluster *= 2
-    per_block = 1 if C * cluster >= 4 * sms else 3
-    rows = -(-H // min(H, -(-per_block * cluster // B)))
     row_bytes = W * elem_size
+    per_block = bands_per_block if 2 * H * row_bytes > SLOT_BYTES else 1
+    rows = -(-H // min(H, -(-per_block * cluster // B)))
     rows = max(1, min(rows, (SLOT_BYTES // row_bytes - (k - 1)) // 2))
     n_bands = -(-H // rows)
     x_slot = _align((rows + k - 1) * row_bytes + 32, 16)
     g_slot = _align(rows * row_bytes + 32, 16)
+    fixed = _header_bytes(k)
     stages = min(MAX_STAGES, -(-B * n_bands // cluster))
-    while stages > 1 and (_header_bytes(k) + stages * (x_slot + g_slot)
-                          > SMEM_BYTES):
+    while stages > 1 and fixed + stages * (x_slot + g_slot) > SMEM_BYTES:
         stages -= 1
-    smem = _header_bytes(k) + stages * (x_slot + g_slot)
+    smem = fixed + stages * (x_slot + g_slot)
     if smem > SMEM_BYTES:
         raise ValueError(f"dw_filter_grad: a {W}-wide row of {elem_size}-"
                          "byte elements exceeds shared memory")
@@ -154,13 +162,15 @@ def _sm_count(index: int) -> int:
 
 
 def dw_filter_grad(x: torch.Tensor, g: torch.Tensor, kh: int,
-                   kw: int) -> torch.Tensor:
+                   kw: int, plan: DwPlan | None = None) -> torch.Tensor:
     """Filter gradient of a stride-1 SAME depthwise conv.
 
     Args:
         x: (B, C, H, W) conv input, float32 or bfloat16.
         g: (B, C, H, W) output cotangent, same dtype.
         kh, kw: odd filter size (square, 3 or 5, on CUDA).
+        plan: the CUDA launch; `dw_plan`'s by default (the probe passes
+            others to compare them).
 
     Returns (C, 1, kh, kw) float32.  On CUDA: one launch, deterministic
     (every sum in a fixed order); x and g that are not contiguous NCHW are
@@ -183,8 +193,9 @@ def dw_filter_grad(x: torch.Tensor, g: torch.Tensor, kh: int,
     if x.numel() == 0:
         return torch.zeros((C, 1, kh, kw), dtype=torch.float32,
                            device=x.device)
-    plan = dw_plan(B, C, H, W, kh, x.element_size(),
-                   _sm_count(x.device.index or 0))
+    if plan is None:
+        plan = dw_plan(B, C, H, W, kh, x.element_size(),
+                       _sm_count(x.device.index or 0))
     if not x.is_contiguous():
         x = x.contiguous()
         dw_filter_grad.copies += 1

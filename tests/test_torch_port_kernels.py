@@ -28,6 +28,8 @@ from occdepth_tpu_torch.ops.crp_matmul import (
 from occdepth_tpu_torch.ops.crp_matmul import wgmma_path
 from occdepth_tpu_torch.ops.dw_conv import (
     MAX_CLUSTER,
+    BLOCKS_PER_SM,
+    MAX_WARPS,
     SMEM_BYTES,
     dw_conv2d_fastgrad,
     dw_filter_grad,
@@ -264,16 +266,19 @@ def test_dw_plan_covers_each_row_once_and_stages_aligned_spans(shape, k):
     band's staged x span holds the band's rows and halo rows, bulk copies
     16-byte aligned and inside the tensor (also for a view that starts
     three elements into its storage), the ragged rest copied apart, the slots
-    large enough, clusters of 1-8 blocks and the grid two blocks per SM
-    deep where the plane has rows enough to split."""
+    large enough, clusters of 1-8 blocks, and the grid BLOCKS_PER_SM
+    blocks per SM deep where the plane has rows enough to split, and no
+    deeper through clusters."""
     B, C, H, W = shape
     P = (k - 1) // 2
     for es in (2, 4):
         plan = dw_plan(B, C, H, W, k, es)
         assert plan.cluster in (1, 2, 4, 8) and plan.cluster <= MAX_CLUSTER
-        assert 1 <= plan.warps <= 8 and plan.smem <= SMEM_BYTES
-        assert (C * plan.cluster >= 2 * 132 or plan.cluster == MAX_CLUSTER
-                or 2 * plan.cluster > B * H)
+        assert 1 <= plan.warps <= MAX_WARPS and plan.smem <= SMEM_BYTES
+        assert plan.warps * 64 >= min(W, MAX_WARPS * 64)
+        assert (C * plan.cluster >= BLOCKS_PER_SM * 132
+                or plan.cluster == MAX_CLUSTER or 2 * plan.cluster > B * H)
+        assert plan.cluster == 1 or C * plan.cluster < 2 * BLOCKS_PER_SM * 132
         bands = plan_bands(plan, B, C, H)
         per_block = {}
         for c, rank, i, b, h0, h1 in bands:
