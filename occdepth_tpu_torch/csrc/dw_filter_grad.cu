@@ -186,7 +186,7 @@ __device__ __forceinline__ void walk_strip(const T* xs, const T* gs, int xa,
     if (n + u < steps) checked((K - 1 + u) % K, n + u);
 }
 
-template <typename T, int K, int V>
+template <typename T, int K>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 dw_filter_grad_kernel(const T* __restrict__ x, const T* __restrict__ g,
                       float* __restrict__ out, int B, int C, int H, int W,
@@ -279,6 +279,7 @@ dw_filter_grad_kernel(const T* __restrict__ x, const T* __restrict__ g,
   float acc[KK];
 #pragma unroll
   for (int t = 0; t < KK; ++t) acc[t] = 0.f;
+  constexpr int V = kCols;
   constexpr int SW = 32 * V;  // columns of a warp's strip group
   const int ncg = (W + SW - 1) / SW;
   for (int i = 0; i < mine; ++i) {
@@ -354,11 +355,11 @@ cudaLaunchConfig_t launch_config(long long blocks, int warps, int cluster,
   return cfg;
 }
 
-template <typename T, int K, int V>
+template <typename T, int K>
 int launch(const void* x, const void* g, float* out, long long B, long long C,
            long long H, long long W, int warps, int cluster, int band_rows,
            int stages, int x_slot, int g_slot, cudaStream_t stream) {
-  auto kernel = dw_filter_grad_kernel<T, K, V>;
+  auto kernel = dw_filter_grad_kernel<T, K>;
   const long long smem = smem_bytes(K, stages, x_slot, g_slot);
   const long long need_x = (long long)(band_rows + K - 1) * W * sizeof(T) + 32;
   const long long need_g = (long long)band_rows * W * sizeof(T) + 32;
@@ -379,9 +380,9 @@ int launch(const void* x, const void* g, float* out, long long B, long long C,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int K, int V>
+template <typename T, int K>
 int max_clusters(int warps, int cluster, int smem, int* n) {
-  auto kernel = dw_filter_grad_kernel<T, K, V>;
+  auto kernel = dw_filter_grad_kernel<T, K>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -434,7 +435,7 @@ extern "C" int occ_dw_filter_grad(const void* x, const void* g, float* out,
     return -3;
   return dispatch(dtype, k, [&](auto kind) {
     using Kd = decltype(kind);
-    return launch<typename Kd::type, Kd::k, kCols>(
+    return launch<typename Kd::type, Kd::k>(
         x, g, out, B, C, H, W, warps, cluster, band_rows, stages, x_slot,
         g_slot, stream);
   });
@@ -448,7 +449,6 @@ extern "C" int occ_dw_filter_grad_max_clusters(int dtype, int k, int warps,
   if (!valid(dtype, k, warps, cluster, 1) || smem > kMaxSmem) return -1;
   return dispatch(dtype, k, [&](auto kind) {
     using Kd = decltype(kind);
-    return max_clusters<typename Kd::type, Kd::k, kCols>(warps, cluster, smem,
-                                                         n);
+    return max_clusters<typename Kd::type, Kd::k>(warps, cluster, smem, n);
   });
 }
