@@ -55,8 +55,9 @@ Phases, one line each:
      labelled synthetic dataset, validating on a 1-sample one at each
      epoch end (counters set to 0 just before); every loss term finite,
      parameters changed, K4 launched once per stride-1 depthwise conv of
-     view 0 per step with no operand copied to NCHW, the fused lift and K2 once per step and per
-     validation forward, the standalone K1 never; val/mIoU logged,
+     view 0 per step with no operand copied to NCHW, the fused lift and
+     K2 once per step and per validation forward, the standalone K1
+     never; val/mIoU logged,
      best_val_mIoU kept; metrics.jsonl written; a second Trainer resumes
      at step 3;
  11. K3 conv3x3 (implicit GEMM on 128-pixel tiles: in bf16 one TMA halo
@@ -425,8 +426,7 @@ def phase_k4(dev) -> dict:
             max_rel = max(max_rel, err / ref_max)
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
     bound_kinds = set()
-    per_shape = {}
-    for name, H, W, C, k, n in rows:  # times at the train path's dtype
+    for _, H, W, C, k, n in rows:  # times at the train path's dtype
         x, w, gy = bench_dwconv.make_inputs(H, W, C, k, 1, torch.bfloat16, g)
         r = bench_dwconv.time_shape(x, w, gy, 1, repeats=20)
         ms_single = cuda_ms(lambda: dw_filter_grad(x, gy, k, k))
@@ -440,7 +440,6 @@ def phase_k4(dev) -> dict:
         check(r["dw_pallas_ms"] >= r["bound_ms"],
               f"K4 ({C},{H},{W},k{k}) {r['dw_pallas_ms']} ms under its "
               f"bound {r['bound_ms']}")
-        per_shape[name] = r["dw_pallas_ms"]
         tot["ms"] += r["dw_pallas_ms"] * n
         tot["plain_ms"] += r["plain_ms"] * n
         tot["library_ms"] += r["dw_ms"] * n
@@ -450,7 +449,7 @@ def phase_k4(dev) -> dict:
         bound_share=f"{tot['bound_ms'] / tot['ms']:.3f}",
         max_abs_err=max_err, max_rel_err=f"{max_rel:.3e}")
     return dict(tot, n_convs=len(shapes), max_abs_err=max_err,
-                bound_share=tot["bound_ms"] / tot["ms"], per_shape=per_shape,
+                bound_share=tot["bound_ms"] / tot["ms"],
                 bound_by="bytes" if bound_kinds == {"bytes"} else "operations")
 
 

@@ -145,18 +145,17 @@ def check_shape(x, g, k) -> tuple:
     return (out - ref).abs().max().item(), ref.abs().max().item()
 
 
-def sweep(dtype, repeats, gen) -> dict:
-    """name -> [(knobs, plan, ms)] of K4 under every distinct plan the
-    SWEEP knobs give, each checked against the plain version."""
+def sweep(dtype, repeats, gen) -> None:
+    """Print K4's time at every stride-1 shape under every distinct plan
+    the SWEEP knobs give, each checked against the plain version."""
     from occdepth_tpu_torch.ops.dw_conv import dw_plan
 
     es = torch.tensor([], dtype=dtype).element_size()
-    res = {}
     for name, H, W, C, k, _ in k4_shapes():
         x, _, g = make_inputs(H, W, C, k, 1, dtype, gen)
         ref = dw_filter_grad_reference(x.float(), g.float(), k, k)
         default = dw_plan(1, C, H, W, k, es)
-        seen, rows = set(), []
+        seen = set()
         for knobs in itertools.product(*SWEEP.values()):
             plan = dw_plan(1, C, H, W, k, es, **dict(zip(SWEEP, knobs)))
             if plan in seen:
@@ -167,13 +166,10 @@ def sweep(dtype, repeats, gen) -> dict:
                 raise RuntimeError(f"{name} {plan}: error {err.item()}")
             ms = bench_timing.device_ms(
                 lambda: dw_filter_grad(x, g, k, k, plan=plan), calls=repeats)
-            rows.append((dict(zip(SWEEP, knobs)), plan, ms))
             print(f"{name:12s} {ms:8.4f} ms  warps={plan.warps} "
                   f"cluster={plan.cluster} rows={plan.band_rows} "
                   f"stages={plan.stages}"
                   f"{'  (default)' if plan == default else ''}", flush=True)
-        res[name] = rows
-    return res
 
 
 def main(argv=None):
