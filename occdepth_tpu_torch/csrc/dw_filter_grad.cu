@@ -12,8 +12,8 @@
 // read of x and one of g, 4.5 (K=3) to 12.5 (K=5) flops per byte in bf16,
 // below the ~20 where fp32 arithmetic would bound it.  The flagship
 // encoder's 22 convs move 0.0465 ms of bytes in all, 16 of them less than
-// 2 us each, so the fixed cost of a launch, of a block and of the K*K
-// fmas' issue slots decide most of them.  What the design does about the
+// 2 us each, so the fixed costs of a launch and of a block decide most of
+// them.  What the design does about the
 // previous kernel's five costs:
 //
 //   1. One launch per conv, no scratch buffer, no atomics (the previous
@@ -381,19 +381,6 @@ int launch(const void* x, const void* g, float* out, long long B, long long C,
 }
 
 template <typename T, int K>
-int max_clusters(int warps, int cluster, int smem, int* n) {
-  auto kernel = dw_filter_grad_kernel<T, K>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg =
-      launch_config(cluster, warps, cluster, smem, 0, &attr);
-  cfg.numAttrs = 1;
-  return (int)cudaOccupancyMaxActiveClusters(n, kernel, &cfg);
-}
-
-template <typename T, int K>
 struct Kind {
   using type = T;
   static constexpr int k = K;
@@ -441,14 +428,3 @@ extern "C" int occ_dw_filter_grad(const void* x, const void* g, float* out,
   });
 }
 
-// How many clusters of a plan's shape the card holds at once (0: the launch
-// would fail with cudaErrorClusterOutOfResources); `smem` is the block's
-// dynamic shared memory (`DwPlan.smem`).
-extern "C" int occ_dw_filter_grad_max_clusters(int dtype, int k, int warps,
-                                               int cluster, int smem, int* n) {
-  if (!valid(dtype, k, warps, cluster, 1) || smem > kMaxSmem) return -1;
-  return dispatch(dtype, k, [&](auto kind) {
-    using Kd = decltype(kind);
-    return max_clusters<typename Kd::type, Kd::k>(warps, cluster, smem, n);
-  });
-}

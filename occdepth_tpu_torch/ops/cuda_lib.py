@@ -56,7 +56,6 @@ _SIGNATURES = {
         [_P, _P, _P, ctypes.c_int, ctypes.c_int] + [_I64] * 4
         + [ctypes.c_int] * 6 + [_P]
     ),
-    "occ_dw_filter_grad_max_clusters": [ctypes.c_int] * 5 + [_P],
     "occ_conv3x3": [_P, _P, _P, _P, ctypes.c_int] + [_I64] * 5 + [_P],
     "occ_pack_nhwc": [_P, _P, ctypes.c_int] + [_I64] * 9 + [_P],
     "occ_row_gather": [_P, _P, _P, _I64, _I64, _I64, ctypes.c_int, _P],

@@ -39,6 +39,7 @@ BLOCKS_PER_SM = 2  # the grid's aim before a channel's plane is split
 BANDS_PER_BLOCK = 2  # the ring's depth for planes of more than a slot
 SLOT_BYTES = 32 * 1024  # a band's x and g rows, at most (one ring slot)
 SMEM_BYTES = 232448  # a block's most shared memory on sm_90
+K4_RTOL = 1e-4  # x max|ref|: fp32 sums of up to 113k terms in another order
 
 
 def dw_filter_grad_reference(x: torch.Tensor, g: torch.Tensor, kh: int,
@@ -83,17 +84,16 @@ def _header_bytes(k: int) -> int:
 
 @functools.lru_cache(maxsize=256)
 def dw_plan(B: int, C: int, H: int, W: int, k: int, elem_size: int,
-            sms: int = H100_SMS, *, blocks_per_sm: int = BLOCKS_PER_SM,
-            bands_per_block: int = BANDS_PER_BLOCK) -> DwPlan:
+            sms: int = H100_SMS) -> DwPlan:
     """The launch for a (B, C, H, W) conv with a k x k filter.
 
     A warp per group of 64 columns (each lane owns COLS = 2; at most
     MAX_WARPS warps, wider planes give each warp several groups).  A block
     per channel, and blocks per channel (a cluster) doubled up to 8 only
-    while the grid has fewer than `blocks_per_sm` blocks per SM: a
+    while the grid has fewer than BLOCKS_PER_SM blocks per SM: a
     cluster's launch and barriers cost more than the small planes' work.
     Then bands: planes larger than a slot are cut into about
-    `bands_per_block` bands per block, so that the ring overlaps copies
+    BANDS_PER_BLOCK bands per block, so that the ring overlaps copies
     with arithmetic, smaller ones into one band per block.  A slot holds
     at most SLOT_BYTES.
     """
@@ -104,11 +104,11 @@ def dw_plan(B: int, C: int, H: int, W: int, k: int, elem_size: int,
         warps = min(range(MAX_WARPS // 2, MAX_WARPS + 1),
                     key=lambda d: (-(-groups // d) * d - groups, -d))
     cluster = 1
-    while (cluster < MAX_CLUSTER and C * cluster < blocks_per_sm * sms
+    while (cluster < MAX_CLUSTER and C * cluster < BLOCKS_PER_SM * sms
            and 2 * cluster <= B * H):
         cluster *= 2
     row_bytes = W * elem_size
-    per_block = bands_per_block if 2 * H * row_bytes > SLOT_BYTES else 1
+    per_block = BANDS_PER_BLOCK if 2 * H * row_bytes > SLOT_BYTES else 1
     rows = -(-H // min(H, -(-per_block * cluster // B)))
     rows = max(1, min(rows, (SLOT_BYTES // row_bytes - (k - 1)) // 2))
     n_bands = -(-H // rows)
@@ -162,15 +162,13 @@ def _sm_count(index: int) -> int:
 
 
 def dw_filter_grad(x: torch.Tensor, g: torch.Tensor, kh: int,
-                   kw: int, plan: DwPlan | None = None) -> torch.Tensor:
+                   kw: int) -> torch.Tensor:
     """Filter gradient of a stride-1 SAME depthwise conv.
 
     Args:
         x: (B, C, H, W) conv input, float32 or bfloat16.
         g: (B, C, H, W) output cotangent, same dtype.
         kh, kw: odd filter size (square, 3 or 5, on CUDA).
-        plan: the CUDA launch; `dw_plan`'s by default (the probe passes
-            others to compare them).
 
     Returns (C, 1, kh, kw) float32.  On CUDA: one launch, deterministic
     (every sum in a fixed order); x and g that are not contiguous NCHW are
@@ -193,9 +191,8 @@ def dw_filter_grad(x: torch.Tensor, g: torch.Tensor, kh: int,
     if x.numel() == 0:
         return torch.zeros((C, 1, kh, kw), dtype=torch.float32,
                            device=x.device)
-    if plan is None:
-        plan = dw_plan(B, C, H, W, kh, x.element_size(),
-                       _sm_count(x.device.index or 0))
+    plan = dw_plan(B, C, H, W, kh, x.element_size(),
+                   _sm_count(x.device.index or 0))
     if not x.is_contiguous():
         x = x.contiguous()
         dw_filter_grad.copies += 1

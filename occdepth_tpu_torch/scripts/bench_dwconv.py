@@ -28,14 +28,11 @@ have 1392 and 2304 channels (`models/efficientnet.py::variant_channels`).
 
 `--check` holds K4 to its plain version at every stride-1 shape (within
 `K4_RTOL` x max|ref|, on the same inputs) and times nothing; it exits 1 on
-a miss.  `--sweep` times K4 at every stride-1 shape under the launch plans
-that `SWEEP`'s knobs of `ops/dw_conv.py::dw_plan` give (each held to the
-plain version too), marking the default.  Needs a CUDA device.
+a miss.  Needs a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
-import itertools
 import json
 import math
 
@@ -43,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from occdepth_tpu_torch.ops.dw_conv import (
+    K4_RTOL,
     dw_filter_grad,
     dw_filter_grad_reference,
 )
@@ -69,9 +67,6 @@ B3_DW_SHAPES = [
 # how many times each shape occurs in one b3 forward
 B3_DW_COUNTS = [1, 1, 1, 2, 1, 2, 1, 4, 1, 4, 1, 5, 1, 1]
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-# `--sweep`: the dw_plan knobs and the values tried
-SWEEP = {"blocks_per_sm": (1, 2, 4), "bands_per_block": (1, 2, 3)}
-K4_RTOL = 1e-4  # x max|ref|: fp32 sums of up to 113k terms in another order
 
 
 def k4_shapes() -> list:
@@ -145,33 +140,6 @@ def check_shape(x, g, k) -> tuple:
     return (out - ref).abs().max().item(), ref.abs().max().item()
 
 
-def sweep(dtype, repeats, gen) -> None:
-    """Print K4's time at every stride-1 shape under every distinct plan
-    the SWEEP knobs give, each checked against the plain version."""
-    from occdepth_tpu_torch.ops.dw_conv import dw_plan
-
-    es = torch.tensor([], dtype=dtype).element_size()
-    for name, H, W, C, k, _ in k4_shapes():
-        x, _, g = make_inputs(H, W, C, k, 1, dtype, gen)
-        ref = dw_filter_grad_reference(x.float(), g.float(), k, k)
-        default = dw_plan(1, C, H, W, k, es)
-        seen = set()
-        for knobs in itertools.product(*SWEEP.values()):
-            plan = dw_plan(1, C, H, W, k, es, **dict(zip(SWEEP, knobs)))
-            if plan in seen:
-                continue
-            seen.add(plan)
-            err = (dw_filter_grad(x, g, k, k, plan=plan) - ref).abs().max()
-            if err.item() > K4_RTOL * ref.abs().max().item():
-                raise RuntimeError(f"{name} {plan}: error {err.item()}")
-            ms = bench_timing.device_ms(
-                lambda: dw_filter_grad(x, g, k, k, plan=plan), calls=repeats)
-            print(f"{name:12s} {ms:8.4f} ms  warps={plan.warps} "
-                  f"cluster={plan.cluster} rows={plan.band_rows} "
-                  f"stages={plan.stages}"
-                  f"{'  (default)' if plan == default else ''}", flush=True)
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--dtype", default="bfloat16", choices=sorted(DTYPES))
@@ -180,8 +148,6 @@ def main(argv=None):
     ap.add_argument("--check", action="store_true",
                     help="K4 against its plain version at every stride-1 "
                          "shape; times nothing")
-    ap.add_argument("--sweep", action="store_true",
-                    help="K4 under every plan of SWEEP's knobs")
     args = ap.parse_args(argv)
     dev = bench_timing.cuda_device("bench_dwconv")
     torch.backends.cudnn.allow_tf32 = False
@@ -189,11 +155,6 @@ def main(argv=None):
     dtype = DTYPES[args.dtype]
     gpu = bench_timing.gpu_line()
     gen = torch.Generator(device=dev).manual_seed(0)
-
-    if args.sweep:
-        sweep(dtype, args.repeats, gen)
-        print(gpu, flush=True)
-        return
 
     if args.check:
         worst = 0.0

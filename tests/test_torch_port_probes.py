@@ -309,8 +309,8 @@ def test_dwconv_shapes_match_encoder_and_jax():
 def test_bench_dwconv_rehearses_on_cpu(monkeypatch, capsys):
     """The script's control flow at two tiny rows with the device timing
     stubbed: every candidate printed, the totals weighted by the counts,
-    the launch line, the JSON, `--check` (K4's CPU path is its plain
-    version, so the error is 0) and `--sweep`'s plans."""
+    the launch line, the JSON and `--check` (K4's CPU path is its plain
+    version, so the error is 0)."""
     from occdepth_tpu_torch.scripts import bench_timing
 
     monkeypatch.setattr(bench_timing, "cuda_device",
@@ -338,8 +338,3 @@ def test_bench_dwconv_rehearses_on_cpu(monkeypatch, capsys):
     bench_dwconv.main(["--check", "--dtype", "bfloat16"])
     res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert res["ok"] and res["worst_rel_err"] == 0.0
-    bench_dwconv.main(["--sweep", "--dtype", "bfloat16"])
-    lines = capsys.readouterr().out.strip().splitlines()
-    assert lines[-1] == "stub, 700.00 W"
-    assert sum(l.endswith("(default)") for l in lines) == 1
-    assert all(l.startswith("a k3 s1") for l in lines[:-1])
