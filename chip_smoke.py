@@ -24,9 +24,10 @@ Phases, one line each:
      four relations in one call (batch 2, R=4, N=4096, M=512, C=256, the
      model's transposed operand views), in bf16 (wgmma) and fp32 (SIMT),
      with device times (CUDA-graph replays) and the bound;
-  5. the tiny KITTI config's forward on CUDA (kernels) held to the same
-     forward on the CPU (plain versions), fp32 with TF32 off: the fused
-     lift and K2 launch once, the standalone K1 never;
+  5. the tiny KITTI, TartanAir (project_scale 1) and occluded-head KITTI
+     configs' forwards on CUDA (kernels) held to the same forwards on the
+     CPU (plain versions), fp32 with TF32 off: the fused lift and K2
+     launch once each, the standalone K1 never;
   6. the serving path: ServingPipeline at the flagship KITTI stereo config
      (b3, feature 32, 370x1220 stereo, 256x256x32 grid, 20 classes, bf16,
      seeded random weights) serves 5 frames at batch size 2; the kernels'
@@ -95,7 +96,36 @@ Phases, one line each:
  15. the probe scripts bench_gather, bench_head_pallas --json,
      bench_dwconv and bench_conv2d as subprocesses: each exits 0, prints a
      time for every candidate (every row of bench_dwconv's list) and a
-     launch count above 0 of its kernel (K6, K5, K4, K3).
+     launch count above 0 of its kernel (K6, K5, K4, K3);
+ 16. TartanAir's kernels on a full-size synthetic tree (make_tartanair_tree:
+     480x640 stereo PNGs, 120x48x120 labels, a rig that puts ~80% of the
+     voxels in both views): the fused lift into 691,200 voxels (batch 1,
+     the tree's projection and edge-case points, bf16 and fp32, NCHW and
+     channels-last) and its forward + backward time; K2 at the 30x12x30
+     bottleneck, (1, 4, 10,800, 1,350) @ (1, 1,350, 256), bf16 on the
+     wgmma kernel (mega padded to 1,352) beside the SIMT kernel it took
+     before and torch.sigmoid + torch.matmul, fp32 on SIMT; K4 at the b3
+     encoder's 22 stride-1 depthwise convs on a 480x640 image; K3 at the
+     decoder's ten 3x3 convs on a 480x640 frame, bf16 and fp32, with
+     cuDNN's conv beside; each vs its plain version, with device times
+     (CUDA-graph replays) and bounds;
+ 17. TartanAir training: the shipped tartanair config (b3, feature 32,
+     120x48x120, 14 classes) in bf16 with dw_conv_grad=pallas fits 3 steps
+     at batch 1 on the tree, validating at each epoch end (counters set
+     to 0 just before): every loss term finite, parameters changed, K4
+     once per stride-1 depthwise conv of view 0 per step with no copies,
+     the fused lift and K2 once per step and per validation forward, K1
+     never; ms/step and peak memory; then the train CLI as a subprocess
+     for 2 steps, and again to resume at step 2;
+ 18. TartanAir evaluation of the tree's 2 val frames from a
+     reference-schema .ckpt: fp32 (TF32 off) under decoder_conv_impl=xla
+     and =pallas (K3 under pallas only, confusion counts within
+     CONF_FLIP_FRAC), bf16 ms/frame in turns, and the eval CLI, which must
+     print the 14-class table;
+ 19. the shipped occluded-head KITTI config at full width, bf16: 3 train
+     steps at batch 1 (loss_occluded finite, the occluded head's
+     parameters changed, the launch counts of phase 10) and an eval
+     forward whose occluded_logit is (1, 256, 256, 32, 2) float32.
 Then a JSON line of per-kernel results, the `nvidia-smi` name/power-limit
 line, and as the last line {"ok": true, "device": {...}}.  Any failure
 raises and exits non-zero; there is no CPU fallback.
@@ -145,6 +175,11 @@ K3_RTOL = {"float32": 1e-4,  # x max|ref|: fp32 sums of 9*Ci terms reordered
 EVAL_FRAMES, EVAL_BATCH = 3, 2
 CONF_FLIP_FRAC = 1e-5  # of counted voxels: argmax flips xla vs pallas, fp32
 FLAGSHIP = "semantic_kitti/multicam_flospdepth_crp_stereodepth_cascadecls"
+OCCLUDED = FLAGSHIP + "_occluded"
+TA_CONFIG = "tartanair/flosp_crp_cascadecls"
+TA_GRID, TA_VOXEL = (120, 48, 120), 0.1  # the shipped config's grid
+TA_FRAMES = 2  # per sequence: 2 train (P000) and 2 val (P005) samples
+TA_HW = (480, 640)
 
 
 def log(phase: str, **fields) -> None:
@@ -331,6 +366,48 @@ def phase_lift(dev, calib, hw) -> dict:
     return res
 
 
+def phase_tiny(dev) -> None:
+    """5. The tiny KITTI, TartanAir (project_scale 1) and occluded-head
+    KITTI configs' forwards on CUDA (kernels) vs the CPU (plain versions),
+    fp32 with TF32 off: the fused lift and K2 once each, K1 never."""
+    import torch
+
+    from occdepth_tpu_torch.data.batch import make_synthetic_batch
+    from occdepth_tpu_torch.models import OccDepthModel
+    from occdepth_tpu_torch.testing import (
+        randomize_weights,
+        tiny_kitti_config,
+        tiny_tartanair_config,
+    )
+
+    for name, tcfg in (("kitti", tiny_kitti_config()),
+                       ("tartanair", tiny_tartanair_config()),
+                       ("kitti_occluded", tiny_kitti_config(occluded_cls=True))):
+        cpu_model = randomize_weights(OccDepthModel(tcfg), seed=1).eval()
+        gpu_model = copy.deepcopy(cpu_model).to(dev)
+        tbatch = make_synthetic_batch(tcfg, batch_size=2, seed=3)
+        reset_counts()
+        with torch.inference_mode():
+            out_cpu = cpu_model({k: torch.from_numpy(v)
+                                 for k, v in tbatch.items()})
+            out_gpu = gpu_model({k: torch.from_numpy(v).to(dev)
+                                 for k, v in tbatch.items()})
+        tiny_err = max((out_gpu[k].cpu() - out_cpu[k]).abs().max().item()
+                       for k in out_cpu)
+        n = read_counts()
+        log("tiny", config=name, keys=",".join(sorted(out_cpu)),
+            max_abs_err=tiny_err, atol=TINY_ATOL,
+            lift_launches=n["flosp_stereo_lift"],
+            k2_launches=n["crp_relation_matmul"],
+            k1_launches=n["stereo_cosine_fuse"])
+        check(tiny_err <= TINY_ATOL, f"tiny {name} CUDA vs CPU error {tiny_err}")
+        check(n["flosp_stereo_lift"] == 1 and n["crp_relation_matmul"] == 1
+              and n["stereo_cosine_fuse"] == 0,
+              f"tiny {name} forward launches {n} (lift and K2 once, K1 never)")
+        check(("occluded_logit" in out_cpu) == tcfg.occluded_cls,
+              f"tiny {name} outputs {sorted(out_cpu)}")
+
+
 def phase_k2(dev) -> dict:
     """4. K2, the four relations in one call, vs its plain version."""
     import torch
@@ -379,9 +456,10 @@ def phase_k2(dev) -> dict:
     return res
 
 
-def flagship_dw_shapes(dev) -> list:
-    """(C, H, W, k) of every K4 conv of the flagship encoder at batch 1,
-    read from the model by forward hooks (in forward order)."""
+def flagship_dw_shapes(dev, hw=(370, 1220)) -> list:
+    """(C, H, W, k) of every K4 conv of the b3 encoder at batch 1 on an
+    hw = (H, W) image (the flagship's by default), read from the model by
+    forward hooks (in forward order)."""
     import torch
 
     from occdepth_tpu_torch.models.efficientnet import DWConv2d, EfficientNet
@@ -393,7 +471,7 @@ def flagship_dw_shapes(dev) -> list:
             m.register_forward_hook(lambda mod, inp, out: shapes.append(
                 (*inp[0].shape[1:], mod.kernel_size[0])))
     with torch.no_grad():
-        enc(torch.zeros(1, 3, 370, 1220, device=dev, dtype=torch.bfloat16))
+        enc(torch.zeros(1, 3, *hw, device=dev, dtype=torch.bfloat16))
     del enc
     return shapes
 
@@ -632,12 +710,101 @@ def read_counts() -> dict:
     return {name: fn.launches for name, fn in kernel_counters().items()}
 
 
+def fit_and_check(cfg, train_ds, val_ds, logdir, expected, tag,
+                  smi: str) -> dict:
+    """A Trainer fits TRAIN_STEPS steps at batch 1 on two-sample train_ds,
+    validating on val_ds at each epoch end (steps 2 and 3), with the launch
+    counts set to 0 just before.  Checks: every `expected` loss term
+    logged and finite, the parameters with a gradient all changed (all but
+    at most 2 have one), K4 once per stride-1 depthwise conv of view 0 per
+    step with no operand copied, the fused lift and K2 once per step and
+    per validation forward, K1 and K3 never, val/mIoU logged, the
+    best-by-metric checkpoints kept.  Returns the trainer, its launch
+    counts, ms/step (CUDA events, mean of steps 2-3) and peak memory."""
+    import torch
+
+    from occdepth_tpu_torch.ops.dw_conv import dw_filter_grad
+    from occdepth_tpu_torch.training import Trainer
+
+    trainer = Trainer(cfg, logdir)
+    check(trainer.step == 0 and trainer.device.type == "cuda",
+          f"{tag}: fresh trainer at step {trainer.step} on {trainer.device}")
+    n_dw = sum(1 for m in trainer.model.modules()
+               if getattr(m, "fast_grad", False))
+    before = {n: p.detach().clone()
+              for n, p in trainer.model.named_parameters()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer.fit(train_ds, val_ds, max_steps=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches, copies = read_counts(), dw_filter_grad.copies
+    peak = torch.cuda.max_memory_allocated()
+    ms_step = statistics.mean(trainer.step_ms[1:])
+    # the decoder's 1_16 head feeds no loss: zero gradient, and AdamW's
+    # decay alone (lr * wd ~ 2e-8 relative) is below an fp32 ulp
+    params = dict(trainer.model.named_parameters())
+    trained = [n for n, p in params.items()
+               if p.grad is not None and bool(p.grad.any())]
+    changed = sum(int(not torch.equal(params[n].detach(), before[n]))
+                  for n in trained)
+    with open(trainer.metrics_logger.path) as f:
+        records = [json.loads(line) for line in f]
+    train_recs = [r for r in records if "train/loss" in r]
+    val_steps = [r["step"] for r in records if "val/mIoU" in r]
+    last = train_recs[-1] if train_recs else {}
+    terms = sorted(k for k in last if k.startswith("train/loss"))
+    log(tag, steps=trainer.step, wall_s=f"{wall_s:.2f}",
+        step_ms=",".join(f"{t:.1f}" for t in trainer.step_ms),
+        ms_per_step_2_3=f"{ms_step:.2f}", peak_mem_gib=f"{peak / 2**30:.3f}",
+        gpu=repr(smi), dw_convs=n_dw,
+        params_changed=f"{changed}/{len(trained)}/{len(before)}",
+        val_steps=val_steps, k4_copies=copies,
+        best_val_mIoU=trainer.ckpt.best.get("val/mIoU"),
+        **{f"{k}_launches": v for k, v in launches.items()},
+        **{k.replace("train/", ""): f"{last[k]:.5f}" for k in terms})
+    check(trainer.step == TRAIN_STEPS, f"{tag}: trainer at step "
+                                       f"{trainer.step}")
+    check([r["step"] for r in train_recs] == list(range(1, TRAIN_STEPS + 1)),
+          f"{tag}: metrics.jsonl train records "
+          f"{[r['step'] for r in train_recs]}")
+    check(expected <= set(terms), f"{tag}: loss terms {terms}")
+    check(all(math.isfinite(r[k]) for r in train_recs for k in expected),
+          f"{tag}: a loss term is not finite")
+    check(changed == len(trained) >= len(before) - 2,
+          f"{tag}: {changed}/{len(trained)} params with a gradient changed")
+    check(n_dw == 22, f"{tag}: {n_dw} stride-1 depthwise convs (expected 22)")
+    check(launches["dw_filter_grad"] == n_dw * TRAIN_STEPS,
+          f"{tag}: K4 launches {launches['dw_filter_grad']}")
+    # the train path hands K4 contiguous NCHW x and g: no copies
+    check(copies == 0, f"{tag}: K4 copied {copies} operands to NCHW")
+    # 2 samples at batch 1: epochs end at steps 2 and 3 (max_steps)
+    check(val_steps == [2, TRAIN_STEPS], f"{tag}: val/mIoU records "
+                                         f"{val_steps}")
+    forwards = TRAIN_STEPS + len(val_steps) * len(val_ds)
+    for name in ("flosp_stereo_lift", "crp_relation_matmul"):
+        check(launches[name] == forwards,
+              f"{tag}: {name} launches {launches[name]} for {forwards} "
+              "forwards")
+    check(launches["stereo_cosine_fuse"] == 0,
+          f"{tag}: K1 launches {launches['stereo_cosine_fuse']}")
+    check(launches["conv3x3"] == 0, f"{tag}: training ran K3")
+    check(any("train/mIoU" in r for r in records),
+          f"{tag}: no train/mIoU record")
+    check(trainer.ckpt.has("best_val_mIoU")
+          and trainer.ckpt.has("best_val_IoU"),
+          f"{tag}: no best-by-metric checkpoint")
+    return {"trainer": trainer, "launches": launches, "ms_per_step": ms_step,
+            "peak_gib": peak / 2**30, "before": before}
+
+
 def phase_train(dev, smi: str) -> dict:
     """10. The training path: the flagship Trainer fits 3 steps."""
     import torch
 
     from occdepth_tpu_torch.config import default_config_path, load_config
-    from occdepth_tpu_torch.ops.dw_conv import dw_filter_grad
     from occdepth_tpu_torch.testing import synthetic_dataset
     from occdepth_tpu_torch.training import Trainer
 
@@ -647,88 +814,16 @@ def phase_train(dev, smi: str) -> dict:
     t0 = time.perf_counter()
     train_ds = synthetic_dataset(cfg, 2, seed=0)
     val_ds = synthetic_dataset(cfg, 1, seed=1)
-    data_s = time.perf_counter() - t0
+    log("train_data", seconds=f"{time.perf_counter() - t0:.2f}")
     logdir = tempfile.mkdtemp(prefix="occdepth_train_")
     try:
-        trainer = Trainer(cfg, logdir)
-        check(trainer.step == 0 and trainer.device.type == "cuda",
-              f"fresh trainer at step {trainer.step} on {trainer.device}")
-        n_dw = sum(1 for m in trainer.model.modules()
-                   if getattr(m, "fast_grad", False))
-        before = {n: p.detach().clone()
-                  for n, p in trainer.model.named_parameters()}
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        t0 = time.perf_counter()
-        trainer.fit(train_ds, val_ds, max_steps=TRAIN_STEPS)
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-        launches = read_counts()
-        k4_copies = dw_filter_grad.copies
-        peak = torch.cuda.max_memory_allocated()
-        step_ms = trainer.step_ms
-        ms_step = statistics.mean(step_ms[1:])
+        fit = fit_and_check(cfg, train_ds, val_ds, logdir, {
+            "train/loss", "train/loss_relation_ce_super", "train/loss_ssc",
+            "train/loss_occ", "train/loss_depth", "train/loss_sem_scal",
+            "train/loss_geo_scal", "train/loss_frustums"}, "train", smi)
+        del fit["before"]
         final = {n: p.detach().clone()
-                 for n, p in trainer.model.named_parameters()}
-        # the decoder's 1_16 head feeds no loss: zero gradient, and AdamW's
-        # decay alone (lr * wd ~ 2e-8 relative) is below an fp32 ulp
-        trained = [n for n, p in trainer.model.named_parameters()
-                   if p.grad is not None and bool(p.grad.any())]
-        changed = sum(int(not torch.equal(final[n], before[n]))
-                      for n in trained)
-        with open(trainer.metrics_logger.path) as f:
-            records = [json.loads(line) for line in f]
-        train_recs = [r for r in records if "train/loss" in r]
-        val_steps = [r["step"] for r in records if "val/mIoU" in r]
-        # 2 samples at batch 1: epochs end at steps 2 and 3 (max_steps)
-        n_val_forwards = len(val_steps) * len(val_ds)
-        last = train_recs[-1] if train_recs else {}
-        terms = sorted(k for k in last if k.startswith("train/loss"))
-        log("train", steps=trainer.step, data_s=f"{data_s:.2f}",
-            wall_s=f"{wall_s:.2f}",
-            step_ms=",".join(f"{t:.1f}" for t in step_ms),
-            ms_per_step_2_3=f"{ms_step:.2f}",
-            peak_mem_gib=f"{peak / 2**30:.3f}", gpu=repr(smi),
-            dw_convs=n_dw, params_changed=f"{changed}/{len(trained)}",
-            lift_launches=launches["flosp_stereo_lift"],
-            k1_launches=launches["stereo_cosine_fuse"],
-            k2_launches=launches["crp_relation_matmul"],
-            k4_launches=launches["dw_filter_grad"], k4_copies=k4_copies,
-            k3_launches=launches["conv3x3"], val_steps=val_steps,
-            best_val_mIoU=trainer.ckpt.best.get("val/mIoU"),
-            **{k.replace("train/", ""): f"{last[k]:.5f}" for k in terms})
-        check(trainer.step == TRAIN_STEPS, f"trainer at step {trainer.step}")
-        expected = {"train/loss", "train/loss_relation_ce_super",
-                    "train/loss_ssc", "train/loss_occ", "train/loss_depth",
-                    "train/loss_sem_scal", "train/loss_geo_scal",
-                    "train/loss_frustums"}
-        check([r["step"] for r in train_recs] == list(range(1, TRAIN_STEPS + 1)),
-              f"metrics.jsonl train records {[r['step'] for r in train_recs]}")
-        check(expected <= set(terms), f"loss terms {terms}")
-        check(all(math.isfinite(r[k]) for r in train_recs for k in expected),
-              "a loss term is not finite")
-        check(changed == len(trained) >= len(before) - 2,
-              f"{changed}/{len(trained)} params with a gradient changed")
-        check(n_dw == 22, f"{n_dw} stride-1 depthwise convs (expected 22)")
-        check(launches["dw_filter_grad"] == n_dw * TRAIN_STEPS,
-              f"K4 launches {launches['dw_filter_grad']}")
-        # the train path hands K4 contiguous NCHW x and g: no copies
-        check(k4_copies == 0, f"K4 copied {k4_copies} operands to NCHW")
-        forwards = TRAIN_STEPS + n_val_forwards
-        check(launches["flosp_stereo_lift"] == forwards,
-              f"fused lift launches {launches['flosp_stereo_lift']}")
-        check(launches["stereo_cosine_fuse"] == 0,
-              f"K1 launches {launches['stereo_cosine_fuse']}")
-        check(launches["crp_relation_matmul"] == forwards,
-              f"K2 launches {launches['crp_relation_matmul']}")
-        check(launches["conv3x3"] == 0, "training ran K3")
-        check(any("train/mIoU" in r for r in records), "no train/mIoU record")
-        check(val_steps == [2, TRAIN_STEPS], f"val/mIoU records {val_steps}")
-        check(trainer.ckpt.has("best_val_mIoU")
-              and trainer.ckpt.has("best_val_IoU"),
-              "no best-by-metric checkpoint")
-        del trainer
+                 for n, p in fit.pop("trainer").model.named_parameters()}
         resumed = Trainer(cfg, logdir)
         log("resume", step=resumed.step)
         check(resumed.step == TRAIN_STEPS, f"resumed at step {resumed.step}")
@@ -738,13 +833,13 @@ def phase_train(dev, smi: str) -> dict:
         del resumed
     finally:
         shutil.rmtree(logdir, ignore_errors=True)
-    return {"launches": launches, "ms_per_step": ms_step,
-            "peak_gib": peak / 2**30}
+    return fit
 
 
-def flagship_k3_shapes(dev) -> list:
-    """(Ci, H, W, Co) of the flagship decoder's ten 3x3 convs, read from
-    the 2D UNet by forward hooks (in forward order)."""
+def flagship_k3_shapes(dev, hw=(370, 1220)) -> list:
+    """(Ci, H, W, Co) of the decoder's ten 3x3 convs on an hw = (H, W)
+    image (the flagship's by default), read from the 2D UNet by forward
+    hooks (in forward order)."""
     import torch
 
     from occdepth_tpu_torch.models.unet2d import Conv3x3Fast, UNet2D
@@ -756,15 +851,79 @@ def flagship_k3_shapes(dev) -> list:
             m.register_forward_hook(lambda mod, inp, out: shapes.append(
                 (*inp[0].shape[1:], mod.out_channels)))
     with torch.inference_mode():
-        net(torch.zeros(1, 3, 370, 1220, device=dev, dtype=torch.bfloat16))
+        net(torch.zeros(1, 3, *hw, device=dev, dtype=torch.bfloat16))
     del net
     return shapes
+
+
+def k3_at_shapes(dev, shapes, dtype, g, tag: str) -> dict:
+    """K3 vs its plain version at the decoder's conv shapes (K3_BATCH
+    images, NCHW inputs, so the wrapper's packing copies are timed): each
+    within K3_RTOL, with device times (CUDA-graph replays) of K3, the plain
+    version and cuDNN's conv, the bound, TFLOP/s and bound share; K3 must
+    not read under its bound (a kernel that skipped work would).  Returns
+    the sums over the shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from occdepth_tpu_torch.ops.conv2d_shift import conv3x3, conv3x3_reference
+
+    name = str(dtype).replace("torch.", "")
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+           "bound_ms": 0.0, "max_abs_err": 0.0, "max_rel_err": 0.0}
+    kinds = set()
+    for Ci, H, W, Co in shapes:
+        x = torch.randn(K3_BATCH, Ci, H, W, device=dev,
+                        generator=g).to(dtype)
+        w = (torch.randn(Co, Ci, 3, 3, device=dev, generator=g)
+             / (9 * Ci) ** 0.5).to(dtype)
+        b = 0.1 * torch.randn(Co, device=dev, generator=g)
+        # the plain version in fp32 on the same (bf16-rounded) inputs
+        ref = conv3x3_reference(x.float(), w.float(), b)
+        out = conv3x3(x, w, b)
+        torch.cuda.synchronize()
+        scale = ref.abs().max().item()
+        err = (out.float() - ref).abs().max().item()
+        tol = K3_RTOL[name] * scale
+        check(err <= tol, f"K3 {name} ({Ci},{H},{W})->{Co} error "
+                          f"{err} > {tol}")
+        del ref, out
+        bl = b.to(dtype)
+        ms = device_ms(lambda: conv3x3(x, w, b), calls=10)
+        plain = device_ms(lambda: conv3x3_reference(x, w, b), calls=10)
+        lib = device_ms(lambda: F.conv2d(x, w, bl, 1, 1), calls=10)
+        n_bytes = ((x.numel() + w.numel() + K3_BATCH * Co * H * W)
+                   * x.element_size() + Co * 4)
+        flops = 2 * K3_BATCH * H * W * 9 * Ci * Co
+        b_ms, kind = bound_ms(n_bytes, flops, peak)
+        kinds.add(kind)
+        log(tag, dtype=name, shape=f"({K3_BATCH},{Ci},{H},{W})->{Co}",
+            max_abs_err=err, tol=f"{tol:.3e}", ms=f"{ms:.4f}",
+            plain_ms=f"{plain:.4f}", library_ms=f"{lib:.4f}",
+            bound_ms=f"{b_ms:.4f}", bound_by=kind,
+            bound_share=f"{b_ms / ms:.3f}",
+            tflops=f"{flops / ms / 1e9:.1f}")
+        check(ms >= b_ms, f"K3 {name} ({Ci},{H},{W})->{Co} took {ms} ms, "
+                          f"under its bound {b_ms}: work was skipped")
+        tot["ms"] += ms
+        tot["plain_ms"] += plain
+        tot["library_ms"] += lib
+        tot["bound_ms"] += b_ms
+        tot["max_abs_err"] = max(tot["max_abs_err"], err)
+        tot["max_rel_err"] = max(tot["max_rel_err"], err / scale)
+        del x, w
+    tot["bound_by"] = "bytes" if kinds == {"bytes"} else "operations"
+    tot["bound_share"] = tot["bound_ms"] / tot["ms"]
+    log(f"{tag}_total", dtype=name, convs=len(shapes),
+        **{k: (f"{v:.4f}" if isinstance(v, float) and "err" not in k
+               else v) for k, v in tot.items()})
+    return tot
 
 
 def phase_k3(dev) -> dict:
     """11. K3 vs its plain version at the flagship decoder's ten shapes."""
     import torch
-    import torch.nn.functional as F
 
     from occdepth_tpu_torch.ops.conv2d_shift import conv3x3, conv3x3_reference
     from occdepth_tpu_torch.scripts import bench_conv2d
@@ -775,55 +934,7 @@ def phase_k3(dev) -> dict:
     res = {}
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).replace("torch.", "")
-        peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
-        tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-               "bound_ms": 0.0, "max_abs_err": 0.0, "max_rel_err": 0.0}
-        kinds = set()
-        for Ci, H, W, Co in shapes:
-            x = torch.randn(K3_BATCH, Ci, H, W, device=dev,
-                            generator=g).to(dtype)
-            w = (torch.randn(Co, Ci, 3, 3, device=dev, generator=g)
-                 / (9 * Ci) ** 0.5).to(dtype)
-            b = 0.1 * torch.randn(Co, device=dev, generator=g)
-            # the plain version in fp32 on the same (bf16-rounded) inputs
-            ref = conv3x3_reference(x.float(), w.float(), b)
-            out = conv3x3(x, w, b)
-            torch.cuda.synchronize()
-            scale = ref.abs().max().item()
-            err = (out.float() - ref).abs().max().item()
-            tol = K3_RTOL[name] * scale
-            check(err <= tol, f"K3 {name} ({Ci},{H},{W})->{Co} error "
-                              f"{err} > {tol}")
-            del ref, out
-            bl = b.to(dtype)
-            ms = device_ms(lambda: conv3x3(x, w, b), calls=10)
-            plain = device_ms(lambda: conv3x3_reference(x, w, b), calls=10)
-            lib = device_ms(lambda: F.conv2d(x, w, bl, 1, 1), calls=10)
-            n_bytes = ((x.numel() + w.numel() + K3_BATCH * Co * H * W)
-                       * x.element_size() + Co * 4)
-            flops = 2 * K3_BATCH * H * W * 9 * Ci * Co
-            b_ms, kind = bound_ms(n_bytes, flops, peak)
-            kinds.add(kind)
-            log("k3", dtype=name, shape=f"({K3_BATCH},{Ci},{H},{W})->{Co}",
-                max_abs_err=err, tol=f"{tol:.3e}", ms=f"{ms:.4f}",
-                plain_ms=f"{plain:.4f}", library_ms=f"{lib:.4f}",
-                bound_ms=f"{b_ms:.4f}", bound_by=kind,
-                bound_share=f"{b_ms / ms:.3f}",
-                tflops=f"{flops / ms / 1e9:.1f}")
-            check(ms >= b_ms, f"K3 {name} ({Ci},{H},{W})->{Co} took {ms} ms, "
-                              f"under its bound {b_ms}: work was skipped")
-            tot["ms"] += ms
-            tot["plain_ms"] += plain
-            tot["library_ms"] += lib
-            tot["bound_ms"] += b_ms
-            tot["max_abs_err"] = max(tot["max_abs_err"], err)
-            tot["max_rel_err"] = max(tot["max_rel_err"], err / scale)
-            del x, w
-        tot["bound_by"] = "bytes" if kinds == {"bytes"} else "operations"
-        tot["bound_share"] = tot["bound_ms"] / tot["ms"]
-        log("k3_total", dtype=name, convs=len(shapes),
-            **{k: (f"{v:.4f}" if isinstance(v, float) and "err" not in k
-                   else v) for k, v in tot.items()})
+        tot = k3_at_shapes(dev, shapes, dtype, g, "k3")
         # bench_conv2d's shapes that the decoder lacks, on the bench's inputs
         gb = torch.Generator(device=dev).manual_seed(0)
         for shape in bench_conv2d.SHAPES:
@@ -1181,20 +1292,422 @@ def phase_probes() -> dict:
     return {"launches": launches, "head": res}
 
 
+def ta_paths(base: str, run: str) -> dict:
+    """Overrides that point a config at the tree under `base`, with the
+    run's own logdir."""
+    return {"data_root": os.path.join(base, "ta"),
+            "data_preprocess_root": os.path.join(base, "ta_pre"),
+            "logdir": os.path.join(base, run)}
+
+
+def k2_simt(p_logit, mega):
+    """K2's SIMT kernel on (B, R, N, M) logits and (B, M, C) mega as they
+    are: the route bf16 took at TartanAir's M = 1,350 before the wrapper
+    padded mega for the wgmma kernel (timed beside it)."""
+    import torch
+
+    from occdepth_tpu_torch.ops import cuda_lib
+    from occdepth_tpu_torch.ops.crp_matmul import _DTYPE_CODE, _sane_strides
+
+    B, R, N, M = p_logit.shape
+    C = mega.shape[-1]
+    out = torch.empty((B, R, C, N), dtype=torch.float32,
+                      device=p_logit.device).transpose(2, 3)
+    rc = cuda_lib.library().occ_crp_relation_matmul(
+        p_logit.data_ptr(), mega.data_ptr(), out.data_ptr(),
+        _DTYPE_CODE[p_logit.dtype], 0, B, R, N, M, C,
+        *_sane_strides(p_logit), *_sane_strides(mega), *out.stride(),
+        torch.cuda.current_stream().cuda_stream)
+    cuda_lib.check(rc, "crp_relation_matmul (SIMT)")
+    return out
+
+
+def phase_ta_kernels(dev, sample) -> dict:
+    """16. K1+, K2, K4 and K3 at TartanAir's shapes vs their plain
+    versions: the fused lift on a 480x640 image's four scales into 691,200
+    voxels (batch 1, the full-size tree's rig and edge-case points), K2 at
+    the 30x12x30 bottleneck ((1, 4, 10,800, 1,350) @ (1, 1,350, 256)), K4
+    at the b3 encoder's stride-1 depthwise convs on a 480x640 image, K3 at
+    the decoder's ten 3x3 convs on a 480x640 frame (2 images)."""
+    import torch
+
+    from occdepth_tpu_torch.ops.crp_matmul import (
+        crp_relation_matmul,
+        crp_relation_matmul_reference,
+        tma_reads_mega,
+        wgmma_path,
+    )
+    from occdepth_tpu_torch.ops.dw_conv import K4_RTOL
+    from occdepth_tpu_torch.ops.flosp_gather import (
+        flosp_stereo_lift,
+        flosp_stereo_lift_reference,
+    )
+    from occdepth_tpu_torch.scripts import bench_dwconv
+    from occdepth_tpu_torch.testing import lift_points
+
+    res = {}
+    # ---- K1+: the fused lift ----
+    C, N = 32, math.prod(TA_GRID)
+    rig = [torch.from_numpy(sample[k][None]).to(dev)
+           for k in ("projected_pix", "fov_mask")]
+    check(tuple(rig[0].shape) == (1, 2, N, 1, 2),
+          f"TartanAir projection {tuple(rig[0].shape)}")
+    edges = [torch.from_numpy(a).to(dev) for a in
+             lift_points(np.random.RandomState(16), 1, N, 1, TA_HW)]
+    max_err = 0.0
+    for i, (dtype, layout, name, (pix, fov)) in enumerate((
+            (torch.bfloat16, "nchw", "rig", rig),
+            (torch.float32, "nchw", "rig", rig),
+            (torch.bfloat16, "channels_last", "edges", edges),
+            (torch.float32, "nchw", "edges", edges))):
+        maps = lift_maps(dev, dtype, layout, 1, C, TA_HW, seed=20 + i)
+        out = flosp_stereo_lift(maps, pix, fov, LIFT_SCALES)
+        ref = flosp_stereo_lift_reference(maps, pix, fov, LIFT_SCALES)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        log("ta_lift_check", points=name, layout=layout,
+            dtype=str(dtype).replace("torch.", ""), max_abs_err=err,
+            tol=LIFT_TOL)
+        check(err <= LIFT_TOL, f"TartanAir lift {name} {dtype} {layout} "
+                               f"error {err} > {LIFT_TOL}")
+        max_err = max(max_err, err)
+        del maps, out, ref
+    pix, fov = rig
+    maps = lift_maps(dev, torch.bfloat16, "nchw", 1, C, TA_HW, seed=29)
+    lift = {"max_abs_err": max_err, "fov_share": fov.all(dim=1).float()
+            .mean().item()}
+    lift["ms"] = device_ms(
+        lambda: flosp_stereo_lift(maps, pix, fov, LIFT_SCALES))
+    lift["plain_ms"] = device_ms(
+        lambda: flosp_stereo_lift_reference(maps, pix, fov, LIFT_SCALES))
+    lift["yardstick_ms"] = device_ms(
+        lambda: per_scale_lift(maps, pix, fov, LIFT_SCALES))
+    lift["bound_ms"], lift["bound_by"] = bound_ms(
+        lift_bytes(maps, pix, fov, LIFT_SCALES), 0, FP32_FLOPS)
+    # the train step's lift: forward, then the backward that recomputes
+    # the plain version and differentiates it
+    leaves = [m.detach().requires_grad_() for m in maps]
+    cot = torch.randn(1, N, C, device=dev)
+    lift["fwd_ms_events"] = cuda_ms(
+        lambda: flosp_stereo_lift(leaves, pix, fov, LIFT_SCALES), iters=5)
+    lift["fwd_bwd_ms_events"] = cuda_ms(lambda: torch.autograd.grad(
+        flosp_stereo_lift(leaves, pix, fov, LIFT_SCALES), leaves, cot),
+        iters=5)
+    log("ta_lift", shape=f"(1,{N},P1,{C}) bf16 NCHW, rig projection",
+        **{k: (f"{v:.5f}" if isinstance(v, float) else v)
+           for k, v in lift.items()},
+        bound_share=f"{lift['bound_ms'] / lift['ms']:.3f}")
+    check(lift["ms"] >= lift["bound_ms"],
+          f"TartanAir lift {lift['ms']} ms under its bound")
+    check(lift["fov_share"] > 0.5, "the tree's rig sees too little")
+    res["lift"] = lift
+    del maps, leaves, cot
+
+    # ---- K2 at M = 1,350: bf16 on wgmma (mega padded), fp32 on SIMT ----
+    R, Nv, M, Cc = K2_RELATIONS, N // 64, 1350, 256
+    g = torch.Generator(device=dev).manual_seed(17)
+    k2 = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        logits = torch.randn(1, R, M, Nv, device=dev, generator=g).to(dtype)
+        mega = torch.randn(1, Cc, M, device=dev, generator=g).to(dtype)
+        args = (logits.transpose(2, 3), mega.transpose(1, 2))
+        path = "wgmma" if wgmma_path(*args) else "simt"
+        check(path == ("wgmma" if dtype == torch.bfloat16 else "simt"),
+              f"TartanAir K2 {name} took the {path} kernel")
+        check(not tma_reads_mega(args[1]), "TartanAir mega needs no padding")
+        ref = crp_relation_matmul_reference(*args)
+        tol = K2_RTOL * ref.abs().max().item()
+        err = (crp_relation_matmul(*args) - ref).abs().max().item()
+        r = {"max_abs_err": err, "kernel": path,
+             "ms": device_ms(lambda: crp_relation_matmul(*args)),
+             "plain_ms": device_ms(
+                 lambda: crp_relation_matmul_reference(*args))}
+        es = logits.element_size()
+        r["bound_ms"], r["bound_by"] = bound_ms(
+            R * Nv * M * es + M * Cc * es + R * Nv * Cc * 4,
+            2 * R * Nv * M * Cc,
+            BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
+        if dtype == torch.bfloat16:
+            simt_err = (k2_simt(*args) - ref).abs().max().item()
+            check(simt_err <= tol, f"K2 SIMT bf16 error {simt_err} > {tol}")
+            r["simt_ms"] = device_ms(lambda: k2_simt(*args))
+            r["library_ms"] = device_ms(
+                lambda: torch.sigmoid(args[0]) @ args[1].unsqueeze(1))
+        log("ta_k2", dtype=name, shape=f"1x{R}x({Nv},{M})@({M},{Cc})",
+            tol=f"{tol:.3e}", **{k: (f"{v:.5f}" if isinstance(v, float)
+                                     and k != "max_abs_err" else v)
+                                 for k, v in r.items()},
+            bound_share=f"{r['bound_ms'] / r['ms']:.3f}")
+        check(err <= tol, f"TartanAir K2 {name} error {err} > {tol}")
+        check(r["ms"] >= r["bound_ms"],
+              f"TartanAir K2 {name} {r['ms']} ms under its bound")
+        k2[name] = r
+        del logits, mega, ref
+    res["k2"] = k2
+
+    # ---- K4 at the encoder's stride-1 depthwise convs on 480x640 ----
+    shapes = flagship_dw_shapes(dev, TA_HW)
+    check(len(shapes) == 22, f"{len(shapes)} stride-1 dw convs at 480x640")
+    gk = torch.Generator(device=dev).manual_seed(18)
+    max_err = max_rel = 0.0
+    for C4, H, W, k in shapes:
+        for dtype in (torch.bfloat16, torch.float32):
+            x, _, gy = bench_dwconv.make_inputs(H, W, C4, k, 1, dtype, gk)
+            err, ref_max = bench_dwconv.check_shape(x, gy, k)
+            check(err <= K4_RTOL * ref_max, f"TartanAir K4 {dtype} "
+                  f"({C4},{H},{W},k{k}) error {err} > {K4_RTOL * ref_max}")
+            max_err, max_rel = max(max_err, err), max(max_rel, err / ref_max)
+    counts = {}
+    for sh in shapes:
+        counts[sh] = counts.get(sh, 0) + 1
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    kinds = set()
+    for (C4, H, W, k), n in counts.items():
+        x, w, gy = bench_dwconv.make_inputs(H, W, C4, k, 1, torch.bfloat16,
+                                            gk)
+        r = bench_dwconv.time_shape(x, w, gy, 1, repeats=20)
+        kinds.add(r["bound_by"])
+        log("ta_k4", shape=f"(1,{C4},{H},{W})", k=k, count=n,
+            ms=f"{r['dw_pallas_ms']:.4f}", plain_ms=f"{r['plain_ms']:.4f}",
+            library_ms=f"{r['dw_ms']:.4f}", bound_ms=f"{r['bound_ms']:.4f}",
+            bound_share=f"{r['bound_share']:.3f}")
+        check(r["dw_pallas_ms"] >= r["bound_ms"],
+              f"TartanAir K4 ({C4},{H},{W},k{k}) under its bound")
+        for key, v in (("ms", r["dw_pallas_ms"]), ("plain_ms", r["plain_ms"]),
+                       ("library_ms", r["dw_ms"]),
+                       ("bound_ms", r["bound_ms"])):
+            tot[key] += v * n
+        del x, w, gy
+    tot.update(max_abs_err=max_err, max_rel_err=max_rel, n_convs=len(shapes),
+               bound_by="bytes" if kinds == {"bytes"} else "operations",
+               bound_share=tot["bound_ms"] / tot["ms"])
+    log("ta_k4_total", **{k: (f"{v:.4f}" if isinstance(v, float)
+                              and "err" not in k else v)
+                          for k, v in tot.items()})
+    res["k4"] = tot
+
+    # ---- K3 at the decoder's ten 3x3 convs on a 480x640 frame ----
+    shapes = flagship_k3_shapes(dev, TA_HW)
+    check(len(shapes) == 10, f"{len(shapes)} decoder 3x3 convs at 480x640")
+    g3 = torch.Generator(device=dev).manual_seed(19)
+    res["k3"] = {str(dt).replace("torch.", ""): k3_at_shapes(
+        dev, shapes, dt, g3, "ta_k3") for dt in (torch.bfloat16,
+                                                 torch.float32)}
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_cli(module: str, args: list, tag: str) -> list:
+    """A port CLI as a subprocess, as a user runs it; its stdout lines."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", f"occdepth_tpu_torch.scripts.{module}",
+         *args], capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines = proc.stdout.strip().splitlines()
+    for line in lines:
+        print(f"[{tag}] {line}", flush=True)
+    check(proc.returncode == 0,
+          f"{tag} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    log(tag, seconds=f"{time.perf_counter() - t0:.1f}")
+    return lines
+
+
+def phase_ta_train(dev, smi: str, base: str) -> dict:
+    """17. TartanAir training: the shipped config (b3, feature 32, 480x640
+    stereo, 120x48x120, 14 classes) in bf16 with dw_conv_grad=pallas on
+    the full-size tree fits 3 steps at batch 1 and validates at each epoch
+    end; then the train CLI for 2 steps, and again to resume."""
+    import torch
+
+    from occdepth_tpu_torch.config import default_config_path, load_config
+    from occdepth_tpu_torch.training.trainer import make_datasets
+
+    overrides = dict(ta_paths(base, "train"), compute_dtype="bfloat16",
+                     dw_conv_grad="pallas",
+                     log_every_n_steps=1)
+    cfg = load_config(default_config_path(TA_CONFIG), overrides=overrides)
+    train_ds, val_ds = make_datasets(cfg)
+    check(len(train_ds) == len(val_ds) == TA_FRAMES,
+          f"TartanAir tree: {len(train_ds)} train, {len(val_ds)} val")
+    expected = {"train/loss", "train/loss_relation_ce_super",
+                "train/loss_ssc", "train/loss_occ", "train/loss_sem_scal",
+                "train/loss_geo_scal", "train/loss_frustums"}
+    fit = fit_and_check(cfg, train_ds, val_ds, os.path.join(base, "fit"),
+                        expected, "ta_train", smi)
+    del fit["trainer"], fit["before"]
+    torch.cuda.empty_cache()
+
+    # the train CLI, as a user runs it: 2 steps, then a rerun resumes
+    args = ["--config", default_config_path(TA_CONFIG),
+            *(f"{k}={v}" for k, v in overrides.items())]
+    lines = run_cli("train", args + ["--max-steps", "2"], "ta_train_cli")
+    check("train: steps 0 -> 2" in " ".join(lines),
+          "the train CLI did not take 2 steps")
+    lines = run_cli("train", args + ["--max-steps", "3"],
+                    "ta_train_cli_resume")
+    check("resumed from step 2" in lines
+          and "train: steps 2 -> 3" in " ".join(lines),
+          "the train CLI did not resume at step 2")
+    return fit
+
+
+def phase_ta_eval(dev, smi: str, base: str) -> dict:
+    """18. TartanAir evaluation on the full-size tree's 2 val frames at the
+    shipped batch 1: fp32 (TF32 off) under decoder_conv_impl=xla and
+    =pallas, bf16 ms/frame of both in turns, and the eval CLI."""
+    import torch
+
+    from occdepth_tpu_torch.config import default_config_path, load_config
+    from occdepth_tpu_torch.data.params import TARTANAIR_CLASS_NAMES
+    from occdepth_tpu_torch.models import OccDepthModel
+    from occdepth_tpu_torch.scripts.eval import evaluate
+    from occdepth_tpu_torch.testing import randomize_weights
+
+    paths = ta_paths(base, "eval")
+    cfg = load_config(default_config_path(TA_CONFIG),
+                      overrides=dict(paths, compute_dtype="float32"))
+    ckpt = os.path.join(base, "ta_ref.ckpt")
+    sd = randomize_weights(OccDepthModel(cfg), seed=0).state_dict()
+    torch.save({"state_dict": {"model." + k: v for k, v in sd.items()}},
+               ckpt)
+    del sd
+    runs, launches = {}, {}
+    for impl in ("xla", "pallas"):
+        reset_counts()
+        runs[impl] = evaluate(dataclasses.replace(cfg, decoder_conv_impl=impl),
+                              torch_ckpt=ckpt)
+        torch.cuda.synchronize()
+        launches[impl] = read_counts()
+        log("ta_eval_fp32", impl=impl, frames=runs[impl]["n_frames"],
+            mIoU=f"{runs[impl]['iou_ssc_mean']:.6f}",
+            loss=f"{runs[impl]['losses']['loss']:.5f}",
+            **{f"{k}_launches": v for k, v in launches[impl].items()})
+    n_batches = TA_FRAMES  # batch 1
+    counted = int(runs["pallas"]["conf"].sum())
+    flips = int(np.abs(runs["pallas"]["conf"].astype(np.int64)
+                       - runs["xla"]["conf"]).sum()) // 2
+    log("ta_eval_xla_vs_pallas", counted_voxels=counted, conf_diff=flips,
+        bound=int(CONF_FLIP_FRAC * counted))
+    check(launches["pallas"]["conv3x3"] == 10 * n_batches,
+          f"TartanAir: K3 launched {launches['pallas']['conv3x3']} times "
+          "under pallas")
+    check(launches["xla"]["conv3x3"] == 0, "TartanAir: K3 launched under xla")
+    for impl, n in launches.items():
+        check(n["flosp_stereo_lift"] == n["crp_relation_matmul"] == n_batches
+              and n["stereo_cosine_fuse"] == 0,
+              f"TartanAir {impl}: lift/K2/K1 launches {n}")
+    for impl, st in runs.items():
+        n_vox = int(st["conf"].sum())
+        check(st["n_frames"] == TA_FRAMES
+              and n_vox == TA_FRAMES * math.prod(cfg.full_scene_size),
+              f"TartanAir {impl}: {st['n_frames']} frames, {n_vox} voxels")
+        check(all(math.isfinite(v) for v in [
+            st["precision"], st["recall"], st["iou"], st["iou_ssc_mean"],
+            *st["iou_ssc"].tolist(), *st["losses"].values()]),
+            f"TartanAir {impl}: a stat is not finite")
+    check(flips <= CONF_FLIP_FRAC * counted,
+          f"TartanAir pallas vs xla confusion differs in {flips} voxels")
+
+    times, peaks = {"xla": [], "pallas": []}, {"xla": [], "pallas": []}
+    bf16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    for impl in ("xla", "pallas"):  # one untimed pass of each
+        evaluate(dataclasses.replace(bf16, decoder_conv_impl=impl),
+                 torch_ckpt=ckpt)
+    for impl in ("xla", "pallas", "pallas", "xla"):
+        torch.cuda.reset_peak_memory_stats()
+        st = evaluate(dataclasses.replace(bf16, decoder_conv_impl=impl),
+                      torch_ckpt=ckpt)
+        times[impl].append(st["ms_per_frame"])
+        peaks[impl].append(torch.cuda.max_memory_allocated() / 2**30)
+    log("ta_eval_bf16", gpu=repr(smi),
+        ms_per_frame_xla=",".join(f"{t:.2f}" for t in times["xla"]),
+        ms_per_frame_pallas=",".join(f"{t:.2f}" for t in times["pallas"]),
+        peak_gib_xla=f"{max(peaks['xla']):.3f}",
+        peak_gib_pallas=f"{max(peaks['pallas']):.3f}")
+
+    lines = run_cli("eval", [
+        "--config", default_config_path(TA_CONFIG), "--torch-ckpt", ckpt,
+        "decoder_conv_impl=pallas", "compute_dtype=bfloat16",
+        *(f"{k}={v}" for k, v in paths.items())], "ta_eval_cli")
+    check("test======" in lines
+          and f"class IoU: {TARTANAIR_CLASS_NAMES}, " in lines
+          and any(line.startswith("mIoU=") for line in lines),
+          "the eval CLI printed no 14-class TartanAir table")
+    check("WARNING" not in " ".join(lines), "the eval CLI missed keys")
+    return {"launches": launches["pallas"], "times": times, "peaks": peaks,
+            "flips": flips, "counted": counted}
+
+
+def phase_occluded(dev, smi: str) -> dict:
+    """19. The shipped occluded-head KITTI config at full width in bf16
+    (dw_conv_grad=pallas): 3 train steps at batch 1 on a labelled
+    synthetic dataset with occluded labels, validating at each epoch end;
+    loss_occluded finite and the occluded head trained; an eval forward
+    returns occluded_logit on the full grid."""
+    import torch
+
+    from occdepth_tpu_torch.config import default_config_path, load_config
+    from occdepth_tpu_torch.testing import synthetic_dataset
+
+    cfg = load_config(default_config_path(OCCLUDED), overrides={
+        "compute_dtype": "bfloat16", "dw_conv_grad": "pallas",
+        "log_every_n_steps": 1})
+    check(cfg.occluded_cls, "the occluded config has no occluded head")
+    train_ds = synthetic_dataset(cfg, 2, seed=0)
+    val_ds = synthetic_dataset(cfg, 1, seed=1)
+    check("occluded" in train_ds[0], "no occluded labels in the batch")
+    logdir = tempfile.mkdtemp(prefix="occdepth_occluded_")
+    try:
+        expected = {"train/loss", "train/loss_occluded", "train/loss_ssc",
+                    "train/loss_occ", "train/loss_depth",
+                    "train/loss_relation_ce_super", "train/loss_frustums"}
+        fit = fit_and_check(cfg, train_ds, val_ds, logdir, expected,
+                            "occluded_train", smi)
+        model, before = fit.pop("trainer").model.eval(), fit.pop("before")
+        head = {n: p for n, p in model.named_parameters()
+                if n.startswith("net_3d_decoder.occluded_head.")}
+        moved = sum(int(not torch.equal(p.detach(), before[n]))
+                    for n, p in head.items())
+        batch = {k: torch.from_numpy(np.asarray(v)[None]).to(dev)
+                 for k, v in val_ds[0].items()}
+        with torch.inference_mode():
+            out = model(batch)
+        occl = out["occluded_logit"]
+        log("occluded_eval", occluded_head_params_changed=f"{moved}/"
+            f"{len(head)}", occluded_logit=tuple(occl.shape),
+            dtype=str(occl.dtype), finite=bool(torch.isfinite(occl).all()))
+        check(len(head) > 0 and moved == len(head),
+              f"{moved}/{len(head)} occluded_head parameters changed")
+        check(tuple(occl.shape) == (1, *cfg.full_scene_size, 2)
+              and occl.dtype == torch.float32
+              and bool(torch.isfinite(occl).all()),
+              f"occluded_logit {tuple(occl.shape)} {occl.dtype}")
+        del model, out
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return fit
+
+
 def main() -> None:
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
-    from occdepth_tpu_torch.data.batch import make_synthetic_batch
-    from occdepth_tpu_torch.models import OccDepthModel
+    from occdepth_tpu_torch.config import default_config_path, load_config
+    from occdepth_tpu_torch.data.tartanair import TartanAirDataset
     from occdepth_tpu_torch.ops import cuda_lib
     from occdepth_tpu_torch.scripts.profile_serve_stages import (
         serving_setup,
         stage_events,
         stage_ms,
     )
-    from occdepth_tpu_torch.testing import randomize_weights, tiny_kitti_config
+    from occdepth_tpu_torch.testing import (
+        make_tartanair_tree,
+        tartanair_fov_share,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1215,29 +1728,8 @@ def main() -> None:
     lift = phase_lift(dev, calib, cfg.img_shape)
     k2 = phase_k2(dev)
 
-    # ---- 5. tiny config: CUDA (kernels) vs CPU (plain versions) ----
-    tcfg = tiny_kitti_config()
-    cpu_model = randomize_weights(OccDepthModel(tcfg), seed=1).eval()
-    gpu_model = copy.deepcopy(cpu_model).to(dev)
-    tbatch = make_synthetic_batch(tcfg, batch_size=2, seed=3)
-    reset_counts()
-    with torch.inference_mode():
-        out_cpu = cpu_model({k: torch.from_numpy(v) for k, v in tbatch.items()})
-        out_gpu = gpu_model({k: torch.from_numpy(v).to(dev)
-                             for k, v in tbatch.items()})
-    tiny_err = max((out_gpu[k].cpu() - out_cpu[k]).abs().max().item()
-                   for k in out_cpu)
-    tiny_launches = read_counts()
-    log("tiny", keys=",".join(sorted(out_cpu)), max_abs_err=tiny_err,
-        atol=TINY_ATOL, lift_launches=tiny_launches["flosp_stereo_lift"],
-        k2_launches=tiny_launches["crp_relation_matmul"],
-        k1_launches=tiny_launches["stereo_cosine_fuse"])
-    check(tiny_err <= TINY_ATOL, f"tiny CUDA vs CPU error {tiny_err}")
-    check(tiny_launches["flosp_stereo_lift"] == 1
-          and tiny_launches["crp_relation_matmul"] == 1
-          and tiny_launches["stereo_cosine_fuse"] == 0,
-          f"tiny forward launches {tiny_launches} (lift and K2 once, K1 "
-          "never)")
+    # ---- 5. tiny configs: CUDA (kernels) vs CPU (plain versions) ----
+    phase_tiny(dev)
 
     # ---- 6. main path: flagship KITTI stereo serving ----
     t0 = time.perf_counter()
@@ -1308,11 +1800,36 @@ def main() -> None:
     k5 = phase_k5(dev)
     probes = phase_probes()
 
+    # ---- 16-19. TartanAir kernels, training and eval; occluded KITTI ----
+    ta_base = tempfile.mkdtemp(prefix="occdepth_ta_")
+    try:
+        t0 = time.perf_counter()
+        make_tartanair_tree(ta_base, grid=TA_GRID, voxel_size=TA_VOXEL,
+                            n_frames=TA_FRAMES)
+        log("ta_tree", grid=TA_GRID, frames_per_sequence=TA_FRAMES,
+            seconds=f"{time.perf_counter() - t0:.1f}",
+            both_views_fov_share=tartanair_fov_share(TA_GRID, TA_VOXEL))
+        ta_cfg = load_config(default_config_path(TA_CONFIG),
+                             overrides=ta_paths(ta_base, "data"))
+        ta = phase_ta_kernels(dev, TartanAirDataset(ta_cfg, "val")[0])
+        ta_train = phase_ta_train(dev, smi, ta_base)
+        ta_eval = phase_ta_eval(dev, smi, ta_base)
+    finally:
+        shutil.rmtree(ta_base, ignore_errors=True)
+    occluded = phase_occluded(dev, smi)
+
     def by_path(name):
         paths = {"serve": launches[name], "train": train["launches"][name],
                  "eval": evaluation["launches"][name],
-                 "probe": probes["launches"].get(name, 0)}
+                 "probe": probes["launches"].get(name, 0),
+                 "ta_train": ta_train["launches"][name],
+                 "ta_eval": ta_eval["launches"][name],
+                 "occluded_train": occluded["launches"][name]}
         return {"launches": sum(paths.values()), "launches_by_path": paths}
+
+    def at_ta(r, keys=("max_abs_err", "ms", "plain_ms", "bound_ms",
+                       "bound_by")):
+        return {k: r[k] for k in keys if k in r}
 
     print(json.dumps({"kernels": [
         {"name": "stereo_cosine_fuse", "route": "cuda",
@@ -1334,6 +1851,11 @@ def main() -> None:
                                  "bound_by", "yardstick_ms")},
          "ms_channels_last": lift["channels_last"],
          "library_ms": None,
+         "tartanair": dict(at_ta(ta["lift"]), **{
+             k: ta["lift"][k] for k in ("yardstick_ms", "fwd_ms_events",
+                                        "fwd_bwd_ms_events", "fov_share")},
+             shape="batch 1, 691,200 voxels, C=32, bf16 NCHW maps of a "
+                   "480x640 image, the tree's rig"),
          "timed": "serving shape: batch 2, 262,144 voxels, C=32, bf16 NCHW "
                   "maps (their channels-last copies timed), the rig's "
                   "projection, P=1; yardstick: per-scale index_select + K1"},
@@ -1346,6 +1868,9 @@ def main() -> None:
                                             "bound_by")},
          "library_ms": None,
          "fp32": k2["float32"],
+         "tartanair": {name: dict(at_ta(r), **{
+             k: r[k] for k in ("kernel", "simt_ms", "library_ms") if k in r})
+             for name, r in ta["k2"].items()},
          "timed": "the four relations at batch 2 in one call, (4096,512)@"
                   "(512,256) each, bf16 (wgmma); fp32 (SIMT) beside"},
         {"name": "dw_filter_grad", "route": "cuda",
@@ -1356,6 +1881,10 @@ def main() -> None:
          "ms": k4["ms"], "plain_ms": k4["plain_ms"],
          "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
          "library_ms": k4["library_ms"], "bound_share": k4["bound_share"],
+         "tartanair": dict(at_ta(ta["k4"]), library_ms=ta["k4"]["library_ms"],
+                           n_convs=ta["k4"]["n_convs"],
+                           shape="the b3 encoder's stride-1 dw convs on a "
+                                 "480x640 image, bf16, batch 1"),
          "timed": f"sum over the {k4['n_convs']} stride-1 depthwise convs "
                   "of one flagship view, bf16, batch 1"},
         {"name": "conv3x3", "route": "cuda",
@@ -1370,6 +1899,9 @@ def main() -> None:
          "library_ms": k3["bfloat16"]["library_ms"],
          "bound_share": k3["bfloat16"]["bound_share"],
          "fp32": {k: v for k, v in k3["float32"].items()},
+         "tartanair": {name: dict(at_ta(r), library_ms=r["library_ms"],
+                                  bound_share=r["bound_share"])
+                       for name, r in ta["k3"].items()},
          "timed": "sum over the flagship decoder's ten 3x3 convs at batch 2 "
                   "images (one eval frame), bf16; fp32 (TF32 off) beside"},
         {"name": "row_gather", "route": "cuda",

@@ -40,7 +40,9 @@
 //   * Epilogue: fragments go straight to the (C, N) output: one store of a
 //     register across a warp covers 4 channels x 8 voxels, four whole
 //     32-byte sectors, so no staging is needed.
-// Any other layout or fp32 operands: `crp_relation_matmul_kernel`, a
+// (The wrapper hands mega that TMA cannot read, e.g. TartanAir's M = 1,350
+// with a 2,700-byte stride, as a copy padded to M rounded up to 8.)
+// Any other logits layout or fp32 operands: `crp_relation_matmul_kernel`, a
 // shared-memory tiled GEMM on the CUDA cores (64x64 output tiles, k-steps
 // of 16, a 4x4 register micro-tile per thread, sigmoid folded into the
 // LHS staging), which computes the exact fp32 product as the JAX kernel

@@ -17,6 +17,7 @@ draws in the same order):
     target:               (B, X, Y, Z) int32 (255 = invalid)
     CP_mega_matrices:     (B, n_rel, N8, M8) uint8     [if CRP]
     frustums_class_dists: (B, F, C) float32            [if fp loss]
+    occluded:             (B, X, Y, Z) int32 in {0, 1} [if occluded_cls]
 """
 from __future__ import annotations
 
@@ -174,6 +175,8 @@ def _add_labels(cfg: OccDepthConfig, batch: Dict[str, np.ndarray],
                                         cfg.n_classes, cfg.frustum_size)
             for t in target
         ]).astype(np.float32)
+    if cfg.occluded_cls:
+        batch["occluded"] = (rs.rand(B, X, Y, Z) > 0.5).astype(np.int32)
 
 
 def _label_probs(n_classes: int) -> np.ndarray:

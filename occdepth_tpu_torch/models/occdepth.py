@@ -14,6 +14,7 @@ the JAX package's layouts:
     returns:
         ssc_logit:  (B, X, Y, Z, n_classes) float32
         occ_logit:  (B, X, Y, Z, 2) float32            [cascade_cls]
+        occluded_logit: (B, X, Y, Z, 2) float32        [occluded_cls]
         P_logits:   (B, n_relations, M, N) float32     [context_prior]
         depth_pred: (B, V, h, w, D) float32            [with_depth_gt]
 
@@ -53,8 +54,6 @@ class OccDepthModel(nn.Module):
         super().__init__()
         if cfg.dataset == "NYU":
             raise NotImplementedError("the NYU model is not ported yet")
-        if cfg.occluded_cls:
-            raise NotImplementedError("the occluded head is not ported yet")
         self.cfg = cfg
         self.compute_dtype = _DTYPES[cfg.compute_dtype]
         self.net_rgb = UNet2D(cfg.backbone_2d_name, cfg.feature_2d_oc,
@@ -64,7 +63,7 @@ class OccDepthModel(nn.Module):
             cfg.n_classes, cfg.feature, cfg.full_scene_size,
             project_scale=cfg.project_scale,
             context_prior=cfg.context_prior, n_relations=cfg.n_relations,
-            cascade_cls=cfg.cascade_cls,
+            cascade_cls=cfg.cascade_cls, occluded_cls=cfg.occluded_cls,
         )
         if cfg.trans_2d_to_3d == "flosp_depth":
             self.flosp_depth = FlospDepth(
@@ -126,9 +125,9 @@ class OccDepthModel(nn.Module):
         x3d = x3d.to(dtype=dtype, memory_format=torch.contiguous_format)
         net_out = self.net_3d_decoder(x3d)
         out["ssc_logit"] = net_out["ssc_logit"].float().permute(0, 2, 3, 4, 1)
-        if "occ_logit" in net_out:
-            out["occ_logit"] = net_out["occ_logit"].float().permute(
-                0, 2, 3, 4, 1)
+        for key in ("occ_logit", "occluded_logit"):
+            if key in net_out:
+                out[key] = net_out[key].float().permute(0, 2, 3, 4, 1)
         if "P_logits" in net_out:
             out["P_logits"] = net_out["P_logits"].float()
         return out

@@ -1,9 +1,10 @@
 """3D UNet decoder, KITTI variant, NCDHW.
 
-Counterpart of `occdepth_tpu/models/unet3d.py::UNet3DKitti` for
-project_scale 2 (the final Upsample to the full grid), with the reference's
-module names.  The NYU decoder, the project_scale-1 Convblock3d and the
-occluded head are not ported yet.
+Counterpart of `occdepth_tpu/models/unet3d.py::UNet3DKitti` (KITTI and
+TartanAir), with the reference's module names: at project_scale 2 a final
+Upsample doubles the grid to full size, at project_scale 1 a stride-1
+Convblock3d keeps it; the optional occluded head reads the same full-grid
+features as the SSC head.  The NYU decoder is not ported yet.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import torch.nn as nn
 
 from occdepth_tpu_torch.models.crp3d import CPMegaVoxels
 from occdepth_tpu_torch.models.unet3d_blocks import (
+    Convblock3d,
     Downsample,
     Process,
     SegmentationHead,
@@ -26,10 +28,10 @@ class UNet3DKitti(nn.Module):
                  full_scene_size: Tuple[int, int, int],
                  project_scale: int = 2, context_prior: bool = True,
                  n_relations: int = 4, cascade_cls: bool = True,
-                 bn_momentum: float = 0.1):
+                 occluded_cls: bool = False, bn_momentum: float = 0.1):
         super().__init__()
-        if project_scale != 2:
-            raise NotImplementedError("only project_scale=2 is ported")
+        if project_scale not in (1, 2):
+            raise ValueError(f"project_scale {project_scale}")
         f = feature
         self.process_l1 = nn.Sequential(Process(f, bn_momentum),
                                         Downsample(f, bn_momentum))
@@ -37,9 +39,13 @@ class UNet3DKitti(nn.Module):
                                         Downsample(f * 2, bn_momentum))
         self.up_13_l2 = Upsample(f * 4, f * 2, bn_momentum)
         self.up_12_l1 = Upsample(f * 2, f, bn_momentum)
-        self.up_l1_lfull = Upsample(f, f // 2, bn_momentum)
+        full = Convblock3d if project_scale == 1 else Upsample
+        self.up_l1_lfull = full(f, f // 2, bn_momentum)
         self.ssc_head = SegmentationHead(f // 2, n_classes, (1, 2, 3),
                                          cascade_cls=cascade_cls)
+        self.occluded_head = SegmentationHead(
+            f // 2, n_classes, (1, 2, 3),
+            occluded_only=True) if occluded_cls else None
         self.context_prior = context_prior
         if context_prior:
             size_l3 = tuple(s // project_scale // 4 for s in full_scene_size)
@@ -49,7 +55,8 @@ class UNet3DKitti(nn.Module):
             )
 
     def forward(self, x3d_l1) -> Dict[str, torch.Tensor]:
-        """x3d_l1 (B, f, X, Y, Z) -> NCDHW ssc_logit/occ_logit (+P_logits)."""
+        """x3d_l1 (B, f, X, Y, Z) -> NCDHW ssc_logit, occ_logit and
+        occluded_logit where enabled (+P_logits)."""
         res: Dict[str, torch.Tensor] = {}
         x3d_l2 = self.process_l1(x3d_l1)
         x3d_l3 = self.process_l2(x3d_l2)
@@ -59,8 +66,11 @@ class UNet3DKitti(nn.Module):
             res["P_logits"] = ret["P_logits"]
         x3d_up_l2 = self.up_13_l2(x3d_l3) + x3d_l2
         x3d_up_l1 = self.up_12_l1(x3d_up_l2) + x3d_l1
-        ssc, occ = self.ssc_head(self.up_l1_lfull(x3d_up_l1))
+        x3d_full = self.up_l1_lfull(x3d_up_l1)
+        ssc, occ = self.ssc_head(x3d_full)
         res["ssc_logit"] = ssc
         if occ is not None:
             res["occ_logit"] = occ
+        if self.occluded_head is not None:
+            res["occluded_logit"] = self.occluded_head(x3d_full)
         return res

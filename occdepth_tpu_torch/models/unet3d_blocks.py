@@ -1,4 +1,5 @@
-"""3D building blocks: DDR bottleneck, Process/Up/Downsample, ASPP, heads.
+"""3D building blocks: DDR bottleneck, Process/Up/Downsample, Convblock3d,
+ASPP, heads.
 
 Counterpart of `occdepth_tpu/models/unet3d_blocks.py` in NCDHW with the
 reference's module names.  Torch's (D, H, W) spatial order is the grid's
@@ -141,6 +142,24 @@ class Upsample(nn.Module):
         return self.main(x)
 
 
+class Convblock3d(nn.Module):
+    """Stride-1 ConvTranspose3d(k3, p1) + BN + ReLU, the full-grid block of
+    project_scale 1 (the JAX package's lax padding (1, 1) per dim); the
+    spatial dims stay as they are."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 bn_momentum: float = 0.1):
+        super().__init__()
+        self.main = nn.Sequential(
+            ConvTranspose3d(in_channels, out_channels, 3, 1, padding=1),
+            batch_norm3d(out_channels, momentum=bn_momentum),
+            nn.ReLU(),
+        )
+
+    def forward(self, x):
+        return self.main(x)
+
+
 class ASPP3D(nn.Module):
     """Residual multi-dilation ASPP."""
 
@@ -170,21 +189,27 @@ class SegmentationHead(ASPP3D):
     With `cascade_cls` an occupancy (2-class) conv is added whose float32
     softmax is concatenated before the class conv; returns
     (ssc_logit, occ_logit), occ_logit None without the cascade.
+    `occluded_only` is the occluded-voxel head: the 2-class conv alone,
+    returning its logit.
     """
 
     def __init__(self, planes: int, n_classes: int,
                  dilations: Sequence[int] = (1, 2, 3),
-                 cascade_cls: bool = True):
+                 cascade_cls: bool = True, occluded_only: bool = False):
         super().__init__(planes, dilations)
         self.cascade_cls = cascade_cls
+        self.occluded_only = occluded_only
         self.conv0 = Conv3d(planes, planes, 3, padding=1)
-        if cascade_cls:
+        if cascade_cls or occluded_only:
             self.occ_classes = Conv3d(planes, 2, 3, padding=1)
-        self.conv_classes = Conv3d(planes + (2 if cascade_cls else 0),
-                                   n_classes, 3, padding=1)
+        if not occluded_only:
+            self.conv_classes = Conv3d(planes + (2 if cascade_cls else 0),
+                                       n_classes, 3, padding=1)
 
     def forward(self, x):
         x = super().forward(torch.relu(self.conv0(x)))
+        if self.occluded_only:
+            return self.occ_classes(x)
         if not self.cascade_cls:
             return self.conv_classes(x), None
         occ = self.occ_classes(x)

@@ -4,10 +4,14 @@ Counterpart of `occdepth_tpu/ops/pallas_kernels.py::crp_relation_matmul`,
 batched over relations: one launch computes every (batch item, relation)
 product, with mega shared by the relations of a batch item.  For CPU
 tensors the wrapper runs the plain PyTorch version; for CUDA tensors it
-launches the kernel or raises.  bf16 operands in the model's layout
-(logits voxel-contiguous, mega mega-voxel-contiguous, 16-byte aligned) take
-the wgmma kernel, whose sigmoid is split into two bf16 terms
-(`split_bf16`); fp32 operands and other layouts take the SIMT kernel.  On
+launches the kernel or raises.  bf16 operands with the logits in the
+model's layout (voxel-contiguous, the other strides multiples of 16 bytes,
+16-byte aligned) take the wgmma kernel, whose sigmoid is split into two
+bf16 terms (`split_bf16`); mega goes to it as is where TMA can read it
+(mega-voxel-contiguous, strides multiples of 16 bytes), else as the
+padded copy `pad_mega` makes (TartanAir's M = 1,350 mega-voxels: a
+2,700-byte stride).  fp32 operands and other logits layouts take the SIMT
+kernel.  On
 CUDA with gradients enabled the kernel is the forward of an autograd
 Function whose backward is the plain version's gradient as two matmuls
 (the JAX package computes them outside any Pallas kernel too):
@@ -90,26 +94,44 @@ class _CrpMatmulFn(torch.autograd.Function):
 
 
 def _sane_strides(t: torch.Tensor) -> list:
-    """t's strides with each size-1 dim's replaced by the dense stride it
-    would have (torch leaves those arbitrary; TMA reads every stride)."""
-    strides, dense = list(t.stride()), 1
-    for i in reversed(range(t.dim())):
-        if t.shape[i] == 1:
-            strides[i] = dense
-        dense = strides[i] * t.shape[i]
-    return strides
+    """t's strides with each size-1 dim's replaced by t's extent in
+    elements, the largest stride x size (torch leaves those arbitrary; TMA
+    reads every stride, and the extent is a multiple of the others)."""
+    extent = max(st * n for st, n in zip(t.stride(), t.shape))
+    return [extent if n == 1 else st for st, n in zip(t.stride(), t.shape)]
 
 
 def wgmma_path(p_logit: torch.Tensor, mega: torch.Tensor) -> bool:
     """Whether (B, R, N, M) logits and (B, M, C) mega take the wgmma kernel:
-    bf16, logits voxel-contiguous and mega mega-voxel-contiguous, every
-    other stride a multiple of 16 bytes, both 16-byte aligned."""
+    bf16, logits voxel-contiguous with every other stride a multiple of 16
+    bytes and 16-byte aligned.  Mega of any layout does (`pad_mega`)."""
     if p_logit.dtype != torch.bfloat16 or mega.dtype != torch.bfloat16:
         return False
-    ps, gs = _sane_strides(p_logit), _sane_strides(mega)
-    return (ps[2] == 1 and gs[1] == 1
-            and all(s % 8 == 0 for s in (ps[0], ps[1], ps[3], gs[0], gs[2]))
-            and p_logit.data_ptr() % 16 == 0 and mega.data_ptr() % 16 == 0)
+    ps = _sane_strides(p_logit)
+    return (ps[2] == 1 and all(s % 8 == 0 for s in (ps[0], ps[1], ps[3]))
+            and p_logit.data_ptr() % 16 == 0)
+
+
+def tma_reads_mega(mega: torch.Tensor) -> bool:
+    """Whether the wgmma kernel's TMA reads (B, M, C) bf16 mega as it is:
+    mega-voxel-contiguous, the other strides multiples of 16 bytes,
+    16-byte aligned."""
+    gs = _sane_strides(mega)
+    return (gs[1] == 1 and gs[0] % 8 == 0 and gs[2] % 8 == 0
+            and mega.data_ptr() % 16 == 0)
+
+
+def pad_mega(mega: torch.Tensor) -> torch.Tensor:
+    """(B, M, C) mega as the wgmma kernel's TMA reads it: a (B, M, C) view
+    of a new (B, C, Mp) buffer, Mp = M rounded up to a multiple of 8, rows
+    M..Mp-1 zero.  Strides (C * Mp, 1, Mp): 16-byte multiples in bf16.
+    The kernel reads only the view; its last chunk's mega-voxels past M
+    come from TMA's zero fill, and sigmoid(logit) times a zero row adds
+    nothing to the product."""
+    B, M, C = mega.shape
+    buf = mega.new_zeros(B, C, -(-M // 8) * 8)
+    buf[:, :, :M] = mega.transpose(1, 2)
+    return buf[:, :, :M].transpose(1, 2)
 
 
 def _launch(p_logit, mega):
@@ -138,6 +160,8 @@ def _launch(p_logit, mega):
     out = torch.empty((B, R, C, N), dtype=torch.float32,
                       device=p4.device).transpose(2, 3)
     path = int(wgmma_path(p4, g3))
+    if path and not tma_reads_mega(g3):
+        g3 = pad_mega(g3)
     ps, gs = _sane_strides(p4), _sane_strides(g3)
     rc = cuda_lib.library().occ_crp_relation_matmul(
         p4.data_ptr(), g3.data_ptr(), out.data_ptr(),

@@ -1,11 +1,14 @@
-"""Where the flagship train step's time goes, on one CUDA device.
+"""Where a train step's time goes, on one CUDA device.
 
     python -m occdepth_tpu_torch.scripts.profile_train_step \\
-        [--steps 5] [--out train_profile.json]
+        [--config NAME] [--steps 5] [--out train_profile.json]
 
-At the flagship KITTI stereo config (b3, feature 32, 370x1220 stereo,
-256x256x32 grid, bf16, batch 1, seeded default-initialised weights,
-seeded labelled synthetic batches) it reports:
+At a shipped config (`--config`, a name under occdepth_tpu/configs: the
+flagship KITTI stereo config by default, b3, feature 32, 370x1220 stereo,
+256x256x32 grid; `tartanair/flosp_crp_cascadecls` for TartanAir's 480x640
+stereo and 120x48x120 grid), in bf16 at batch 1 with seeded
+default-initialised weights and seeded labelled synthetic batches, it
+reports:
   1. ms/step of `train_step` with `dw_conv_grad` = xla (PyTorch's own
      depthwise weight gradient) and = pallas (K4), in turns xla, pallas,
      pallas, xla, each the median over --steps steps after 2 warm-up steps;
@@ -160,6 +163,8 @@ def _profile(cfg, batch, dev) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--config", default=FLAGSHIP,
+                    help="shipped config name (default: %(default)s)")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
@@ -167,7 +172,7 @@ def main() -> None:
         raise SystemExit("profile_train_step: no CUDA device")
     dev = torch.device("cuda")
     base = dict(compute_dtype="bfloat16")
-    cfgs = {m: load_config(default_config_path(FLAGSHIP),
+    cfgs = {m: load_config(default_config_path(args.config),
                            dict(base, dw_conv_grad=m))
             for m in ("xla", "pallas")}
     np_batch = make_synthetic_batch(cfgs["pallas"], 1, seed=0,
@@ -177,7 +182,8 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    result = {"gpu": smi.splitlines()[0], "steps": args.steps}
+    result = {"gpu": smi.splitlines()[0], "config": args.config,
+              "steps": args.steps}
 
     per_mode = {"xla": [], "pallas": []}
     for mode in ("xla", "pallas", "pallas", "xla"):

@@ -1,6 +1,6 @@
-"""Reduced-size configs, seeded random weights, a synthetic on-disk
-SemanticKITTI tree, the fp32-noise-aware comparison helpers and the
-stereo-lift inputs for tests and smoke runs."""
+"""Reduced-size configs, seeded random weights, synthetic on-disk
+SemanticKITTI and TartanAir trees, the fp32-noise-aware comparison helpers
+and the stereo-lift inputs for tests and smoke runs."""
 from __future__ import annotations
 
 import copy
@@ -47,6 +47,31 @@ def tiny_kitti_config(**overrides) -> OccDepthConfig:
         flosp_depth_override=fd,
         compute_dtype="float32",
         backbone_2d_name="tf_efficientnet_b3_ns",
+    )
+    base.update(overrides)
+    return OccDepthConfig(**base)
+
+
+def tiny_tartanair_config(**overrides) -> OccDepthConfig:
+    """TartanAir stereo flosp + CRP + cascade at toy sizes, project_scale 1
+    (the same config as `occdepth_tpu.testing.tiny_tartanair_config`)."""
+    base = dict(
+        dataset="tartanair",
+        full_scene_size=(16, 8, 16),
+        project_scale=1,
+        scene_size_m=(4.8, 2.4, 4.8),
+        voxel_size_m=0.3,
+        img_shape_hw=TINY_IMG_KITTI,
+        feature=16,
+        feature_2d_oc=16,
+        n_classes=14,
+        frustum_size=2,
+        multi_view_mode=True,
+        cascade_cls=True,
+        context_prior=True,
+        trans_2d_to_3d="flosp",
+        project_1_8=False,
+        compute_dtype="float32",
     )
     base.update(overrides)
     return OccDepthConfig(**base)
@@ -251,3 +276,105 @@ def make_kitti_tree(base: str, n_frames: int = 2,
             dst = os.path.join(parent, seq_name)
             if not os.path.exists(dst):
                 os.symlink("00", dst)
+
+
+TA_POSE_LEFT = "0.5 -0.2 0.1 0 0 0 1\n"
+TA_POSE_RIGHT = "0.5 0.05 0.1 0 0 0 1\n"  # 0.25 m to the right
+TA_TOY_GRID = (16, 8, 16)
+
+
+def _ta_rig(grid, voxel_size) -> tuple:
+    """(T_velo_2_cam, vox_origin) of a synthetic TartanAir tree.
+
+    The toy grid keeps the JAX package's rig.  A full-size grid is viewed
+    from 1 m in front of the centre of its low-x face, looking along +x
+    with the grid's y axis vertical: 80% of the voxels lie in both views'
+    FOV at (120, 48, 120) and 0.1 m, so the lift reads real rows.
+    """
+    X, Y, Z = grid
+    T = np.eye(4)
+    if tuple(grid) == TA_TOY_GRID:
+        T[:3, :3] = [[0, -1, 0], [0, 0, -1], [1, 0, 0]]
+        T[:3, 3] = [0.0, Y * voxel_size / 2, -0.3]
+        return T, np.array([-2.4, -1.2, -2.4], np.float32)
+    T[:3, :3] = [[0, 0, 1], [0, -1, 0], [1, 0, 0]]
+    T[:3, 3] = [0.0, 0.0, X * voxel_size / 2 + 1.0]
+    size = np.array(grid, float) * voxel_size
+    return T, (-size / 2).astype(np.float32)
+
+
+def tartanair_fov_share(grid, voxel_size) -> float:
+    """Share of a synthetic tree's voxels inside both views' FOV, by the
+    dataset's own geometry (pose files, axis remap, vox2pix)."""
+    from occdepth_tpu_torch.data.tartanair import (
+        IMG_H,
+        IMG_W,
+        INTRINSICS,
+        T_CAM_2_BODY,
+        quat_to_se3,
+    )
+    from occdepth_tpu_torch.geometry.projection import vox2pix
+
+    T, origin = _ta_rig(grid, voxel_size)
+    cams = [quat_to_se3(np.array(p.split(), float)) @ T_CAM_2_BODY
+            for p in (TA_POSE_LEFT, TA_POSE_RIGHT)]
+    size = np.array(grid, float) * voxel_size - 1e-4
+    fov = [vox2pix(E @ T, INTRINSICS, origin, voxel_size, IMG_W, IMG_H,
+                   tuple(size), 0)[1][:, 0]
+           for E in (np.eye(4), np.linalg.inv(cams[1]) @ cams[0])]
+    return float((fov[0] & fov[1]).mean())
+
+
+def make_tartanair_tree(base: str, grid: tuple = TA_TOY_GRID,
+                        voxel_size: float = 0.3, n_frames: int = 2) -> None:
+    """Build a synthetic TartanAir tree under `base`: scene office/Easy,
+    sequences P000 (train) and P005 (val), `n_frames` frames each.
+
+    With the defaults it is `occdepth_tpu.testing.make_tartanair_tree`'s
+    toy tree (the same files from the same RandomState draws): 16x8x16
+    voxel pickles at 0.3 m.  `grid=(120, 48, 120), voxel_size=0.1` writes
+    the shipped config's full size: 120x48x120 `target_1_1` and 30x12x30
+    `target_1_4` grids (14 classes, mostly empty, 255 invalid) and a rig
+    that sees the grid (`tartanair_fov_share`).  Images are 480x640 stereo
+    PNGs either way.  Writes `{base}/ta` (images and poses) and
+    `{base}/ta_pre` (voxel pickles): data_root and data_preprocess_root.
+    """
+    import pickle
+
+    from PIL import Image
+
+    rng = np.random.RandomState(42)
+    X, Y, Z = grid
+    toy = tuple(grid) == TA_TOY_GRID
+    T, origin = _ta_rig(grid, voxel_size)
+    labels = np.array([0, 1, 5, 255]) if toy else np.r_[0:14, 255]
+    probs = None if toy else np.r_[0.6, np.full(13, 0.3 / 13), 0.1]
+    root = os.path.join(base, "ta")
+    pre = os.path.join(base, "ta_pre")
+    for seq in ("P000", "P005"):
+        seq_dir = os.path.join(root, "office", "Easy", seq)
+        os.makedirs(os.path.join(seq_dir, "image_left"), exist_ok=True)
+        os.makedirs(os.path.join(seq_dir, "image_right"), exist_ok=True)
+        with open(os.path.join(seq_dir, "pose_left.txt"), "w") as f:
+            f.write(TA_POSE_LEFT * 3)
+        with open(os.path.join(seq_dir, "pose_right.txt"), "w") as f:
+            f.write(TA_POSE_RIGHT * 3)
+        vox_dir = os.path.join(pre, "labels", "office", "Easy", seq,
+                               "voxels_left")
+        os.makedirs(vox_dir, exist_ok=True)
+        for frame in (f"{i:06d}" for i in range(n_frames)):
+            for side in ("left", "right"):
+                img = (rng.rand(480, 640, 3) * 255).astype(np.uint8)
+                Image.fromarray(img).save(os.path.join(
+                    seq_dir, f"image_{side}", f"{frame}_{side}.png"))
+            data = {
+                "target_1_1": rng.choice(labels, size=(X, Y, Z),
+                                         p=probs).astype(np.uint8),
+                "target_1_4": rng.choice(
+                    labels, size=(X // 4, Y // 4, Z // 4),
+                    p=probs).astype(np.uint8),
+                "vox_origin": origin,
+                "T_velo_2_cam": T.astype(np.float32),
+            }
+            with open(os.path.join(vox_dir, f"{frame}.pkl"), "wb") as f:
+                pickle.dump(data, f)

@@ -62,6 +62,11 @@ def compute_losses(
             l_occ = ce_ssc_loss(out["occ_logit"], occ_target, cw_occ)
             loss = loss + l_occ
             logs["loss_occ"] = l_occ
+        if cfg.occluded_cls and "occluded" in batch:
+            l_occl = ce_ssc_loss(out["occluded_logit"], batch["occluded"],
+                                 torch.ones(2, device=dev))
+            loss = loss + l_occl
+            logs["loss_occluded"] = l_occl
 
     if (cfg.with_depth_gt and cfg.trans_2d_to_3d == "flosp_depth"
             and "gt_depth" in batch):

@@ -60,10 +60,14 @@ def make_datasets(cfg: OccDepthConfig):
 
         return (KittiDataset(cfg, "train", fliplr=0.5),
                 KittiDataset(cfg, "val", fliplr=0.0))
-    if cfg.dataset in ("NYU", "tartanair"):
+    if cfg.dataset == "tartanair":
+        from occdepth_tpu_torch.data.tartanair import TartanAirDataset
+
+        return (TartanAirDataset(cfg, "train", fliplr=0.5),
+                TartanAirDataset(cfg, "val", fliplr=0.0))
+    if cfg.dataset == "NYU":
         raise NotImplementedError(
-            f"the {cfg.dataset} dataset is not ported yet (the NYU/TartanAir "
-            "slice, ROADMAP queue 1 item 13)")
+            "the NYU dataset is not ported yet (ROADMAP queue 1 item 5)")
     raise ValueError(cfg.dataset)
 
 

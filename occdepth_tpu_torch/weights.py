@@ -126,15 +126,24 @@ def _unet3d(out, cfg):
                         f"{fc}/context_prior_logits_{r}", "conv3d", True))
         out.append((f"{tc}.resize.0", f"{fc}/resize_conv", "conv3d", False))
         _process(out, f"{fc}/resize_process", f"{tc}.resize.1", 1)
+    # up_l1_lfull is an Upsample at project_scale 2 and a Convblock3d at 1:
+    # the same keys, a transposed conv either way
     for name in ("up_13_l2", "up_12_l1", "up_l1_lfull"):
         out.append((f"{t}.{name}.main.0", f"{f}/{name}/conv", "convT3d", True))
         out.append((f"{t}.{name}.main.1", f"{f}/{name}/bn", "bn", True))
-    fh, th = f"{f}/ssc_head", f"{t}.ssc_head"
-    out.append((f"{th}.conv0", f"{fh}/conv0", "conv3d", True))
-    _aspp(out, fh, th)
-    if cfg.cascade_cls:
-        out.append((f"{th}.occ_classes", f"{fh}/occ_classes", "conv3d", True))
-    out.append((f"{th}.conv_classes", f"{fh}/conv_classes", "conv3d", True))
+    _seg_head(out, f"{f}/ssc_head", f"{t}.ssc_head", cfg.cascade_cls, False)
+    if cfg.occluded_cls:
+        _seg_head(out, f"{f}/occluded_head", f"{t}.occluded_head", False,
+                  True)
+
+
+def _seg_head(out, f, t, cascade, occluded):
+    out.append((f"{t}.conv0", f"{f}/conv0", "conv3d", True))
+    _aspp(out, f, t)
+    if cascade or occluded:
+        out.append((f"{t}.occ_classes", f"{f}/occ_classes", "conv3d", True))
+    if not occluded:
+        out.append((f"{t}.conv_classes", f"{f}/conv_classes", "conv3d", True))
 
 
 def _flosp_depth(out):

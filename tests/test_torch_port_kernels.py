@@ -25,7 +25,11 @@ from occdepth_tpu_torch.ops.crp_matmul import (
     crp_relation_matmul,
     crp_relation_matmul_reference,
 )
-from occdepth_tpu_torch.ops.crp_matmul import wgmma_path
+from occdepth_tpu_torch.ops.crp_matmul import (
+    pad_mega,
+    tma_reads_mega,
+    wgmma_path,
+)
 from occdepth_tpu_torch.ops.dw_conv import (
     MAX_CLUSTER,
     BLOCKS_PER_SM,
@@ -107,6 +111,29 @@ def test_wrappers_take_plain_path_on_cpu():
     assert fused.shape == (2, 50, 8) and rel.shape == (2, 40, 8)
     torch.testing.assert_close(
         rel, torch.sigmoid(logits.transpose(1, 2)) @ mega.transpose(1, 2))
+
+
+@pytest.mark.parametrize("B,M,C", [(1, 1350, 256), (2, 37, 70), (1, 512, 8)],
+                         ids=["tartanair", "ragged", "aligned"])
+def test_pad_mega_gives_tma_strides_and_zero_rows(B, M, C):
+    """K2's mega in the CRP's layout (a transposed view of the (B, C, M)
+    conv output) as the wgmma kernel's TMA reads it: the same values,
+    strides (C * Mp, 1, Mp) with Mp = M rounded up to 8, the rows past M
+    zero.  At TartanAir's M = 1,350 the view itself has a 2,700-byte
+    stride, which TMA cannot read; the logits' layout still takes wgmma."""
+    g = torch.Generator().manual_seed(3)
+    mega = torch.randn(B, C, M, generator=g).bfloat16().transpose(1, 2)
+    assert tma_reads_mega(mega) == (M % 8 == 0)
+    out = pad_mega(mega)
+    Mp = -(-M // 8) * 8
+    assert out.shape == (B, M, C) and out.dtype == torch.bfloat16
+    assert out.stride() == (C * Mp, 1, Mp) and tma_reads_mega(out)
+    assert torch.equal(out, mega)
+    buf = out.as_strided((B, C, Mp), (C * Mp, Mp, 1))
+    assert not buf[:, :, M:].any()
+    logits = torch.empty(B, 4, M, 10800, dtype=torch.bfloat16)
+    assert wgmma_path(logits.transpose(2, 3), mega)
+    assert not wgmma_path(logits.float().transpose(2, 3), mega.float())
 
 
 @pytest.fixture
@@ -690,23 +717,45 @@ def test_crp_matmul_relations_kernel_matches_plain(cuda_device, dtype,
     ((B, R, M, N) logits and (B, C, M) mega read transposed), one launch:
     within 2e-5 * max|ref| (fp32 sums of M terms in another order; in bf16
     the split sigmoid's 2^-18 per term).  bf16 takes the wgmma kernel
-    wherever TMA can read the strides (N and M multiples of 8): a partial
-    voxel tile and C < 256, two channel tiles with M not a multiple of 64;
-    N = 100 takes the SIMT kernel."""
+    wherever TMA can read the logits' strides (N a multiple of 8; mega is
+    padded where M is not): a partial voxel tile and C < 256, two channel
+    tiles with M not a multiple of 64; N = 100 takes the SIMT kernel."""
     B, R, N, M, C = shape
     g = torch.Generator(device=cuda_device).manual_seed(11)
     logits = torch.randn(B, R, M, N, device=cuda_device,
                          generator=g).to(dtype)
     mega = torch.randn(B, C, M, device=cuda_device, generator=g).to(dtype)
     args = (logits.transpose(2, 3), mega.transpose(1, 2))
-    assert wgmma_path(*args) == (dtype == torch.bfloat16 and N % 8 == 0
-                                 and M % 8 == 0)
+    assert wgmma_path(*args) == (dtype == torch.bfloat16 and N % 8 == 0)
     before = crp_relation_matmul.launches
     out = crp_relation_matmul(*args)
     torch.cuda.synchronize()
     assert crp_relation_matmul.launches == before + 1
     assert out.shape == (B, R, N, C) and out.dtype == torch.float32
     assert out.transpose(2, 3).is_contiguous()
+    ref = crp_relation_matmul_reference(*args)
+    assert (out - ref).abs().max().item() <= 2e-5 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,M", [(1, 1350), (2, 1350), (1, 1345)])
+def test_crp_matmul_tartanair_shape_takes_wgmma(cuda_device, B, M):
+    """K2 at TartanAir's CRP shape, (B, 4, 10,800, 1,350) @ (B, 1,350,
+    256) in bf16 and the model's layout: the wgmma kernel on the padded
+    mega (one launch), within 2e-5 * max|ref| of the plain version; M =
+    1,345 also leaves the last 64-mega-voxel chunk ragged."""
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    R, N, C = 4, 10800, 256
+    logits = torch.randn(B, R, M, N, device=cuda_device,
+                         generator=g).bfloat16()
+    mega = torch.randn(B, C, M, device=cuda_device, generator=g).bfloat16()
+    args = (logits.transpose(2, 3), mega.transpose(1, 2))
+    assert wgmma_path(*args) and not tma_reads_mega(args[1])
+    before = crp_relation_matmul.launches
+    out = crp_relation_matmul(*args)
+    torch.cuda.synchronize()
+    assert crp_relation_matmul.launches == before + 1
+    assert out.shape == (B, R, N, C) and out.dtype == torch.float32
     ref = crp_relation_matmul_reference(*args)
     assert (out - ref).abs().max().item() <= 2e-5 * ref.abs().max().item()
 
