@@ -24,10 +24,11 @@ Phases, one line each:
      four relations in one call (batch 2, R=4, N=4096, M=512, C=256, the
      model's transposed operand views), in bf16 (wgmma) and fp32 (SIMT),
      with device times (CUDA-graph replays) and the bound;
-  5. the tiny KITTI, TartanAir (project_scale 1) and occluded-head KITTI
-     configs' forwards on CUDA (kernels) held to the same forwards on the
-     CPU (plain versions), fp32 with TF32 off: the fused lift and K2
-     launch once each, the standalone K1 never;
+  5. the tiny KITTI, TartanAir (project_scale 1), occluded-head KITTI and
+     NYU RGB-D (the virtual right view) configs' forwards on CUDA
+     (kernels) held to the same forwards on the CPU (plain versions), fp32
+     with TF32 off: the fused lift and K2 launch once each, the
+     standalone K1 never;
   6. the serving path: ServingPipeline at the flagship KITTI stereo config
      (b3, feature 32, 370x1220 stereo, 256x256x32 grid, 20 classes, bf16,
      seeded random weights) serves 5 frames at batch size 2; the kernels'
@@ -125,7 +126,34 @@ Phases, one line each:
  19. the shipped occluded-head KITTI config at full width, bf16: 3 train
      steps at batch 1 (loss_occluded finite, the occluded head's
      parameters changed, the launch counts of phase 10) and an eval
-     forward whose occluded_logit is (1, 256, 256, 32, 2) float32.
+     forward whose occluded_logit is (1, 256, 256, 32, 2) float32;
+ 20. NYU's kernels on a full-size synthetic tree (make_nyu_tree: 480x640
+     RGB images, uint16 depth PNGs, 60x36x60 labels, a rig that puts ~70%
+     of the voxels in the real and the virtual view): the fused lift of
+     the real and the virtual view into 129,600 voxels at b4's C = 100
+     (bf16 rows of 200 bytes: one element a lane) and b7's C = 200, bf16
+     and fp32, NCHW and channels-last, on the tree's projection and on
+     edge-case points; K2 at the 15x9x15 bottleneck, (1, 4, 2,025, 196) @
+     (1, 196, 800) and b7's 1,600 channels, bf16 on the wgmma kernel with
+     the logits and mega padded (neither stride is a 16-byte multiple)
+     beside the SIMT kernel and sigmoid + matmul, fp32 on SIMT; K4 at the
+     b4 encoder's stride-1 depthwise convs on 480x640; K3 at the b4
+     decoder's ten 3x3 convs, bf16 and fp32 with cuDNN's beside; each vs
+     its plain version, with device times (CUDA-graph replays) and bounds;
+ 21. NYU training: the shipped b4 config (feature 100, 60x36x60, 12
+     classes) in bf16 with dw_conv_grad=pallas fits 3 steps at batch 1 on
+     the tree, validating on the test split at each epoch end, with phase
+     17's checks (K4 once per stride-1 depthwise conv per step, no
+     copies; the lift and K2 once per step and per validation forward);
+     the train CLI for 2 steps and its resume; then the b7 config
+     (feature 200) at full width: two train steps (the first pays
+     one-time costs) and one eval forward, losses finite, ms and peak
+     memory;
+ 22. NYU evaluation of the tree's 2 test frames at batch 2 (sample 0's
+     disparity warps both) from a reference-schema .ckpt: fp32 (TF32 off)
+     under decoder_conv_impl=xla and =pallas (K3 under pallas only,
+     confusion counts within CONF_FLIP_FRAC), bf16 ms/frame in turns, and
+     the eval CLI, which must print the 12-class table.
 Then a JSON line of per-kernel results, the `nvidia-smi` name/power-limit
 line, and as the last line {"ok": true, "device": {...}}.  Any failure
 raises and exits non-zero; there is no CPU fallback.
@@ -180,6 +208,11 @@ TA_CONFIG = "tartanair/flosp_crp_cascadecls"
 TA_GRID, TA_VOXEL = (120, 48, 120), 0.1  # the shipped config's grid
 TA_FRAMES = 2  # per sequence: 2 train (P000) and 2 val (P005) samples
 TA_HW = (480, 640)
+NYU_B4 = "NYU/multicam_flosp_crp_stereodepth_cascadecls"
+NYU_B7 = "NYU/multicam_flosp_crp_depthgt_b7_v100"
+NYU_GRID, NYU_HW = (60, 36, 60), (480, 640)  # (X, Z_up, Y); the image
+NYU_FRAMES = 2  # per split: 2 train and 2 test frames
+NYU_EVAL_BATCH = 2  # one batch of 2: sample 0's disparity warps both
 
 
 def log(phase: str, **fields) -> None:
@@ -367,9 +400,10 @@ def phase_lift(dev, calib, hw) -> dict:
 
 
 def phase_tiny(dev) -> None:
-    """5. The tiny KITTI, TartanAir (project_scale 1) and occluded-head
-    KITTI configs' forwards on CUDA (kernels) vs the CPU (plain versions),
-    fp32 with TF32 off: the fused lift and K2 once each, K1 never."""
+    """5. The tiny KITTI, TartanAir (project_scale 1), occluded-head KITTI
+    and NYU RGB-D (the virtual view; its batch carries depth) configs'
+    forwards on CUDA (kernels) vs the CPU (plain versions), fp32 with TF32
+    off: the fused lift and K2 once each, K1 never."""
     import torch
 
     from occdepth_tpu_torch.data.batch import make_synthetic_batch
@@ -377,15 +411,18 @@ def phase_tiny(dev) -> None:
     from occdepth_tpu_torch.testing import (
         randomize_weights,
         tiny_kitti_config,
+        tiny_nyu_config,
         tiny_tartanair_config,
     )
 
     for name, tcfg in (("kitti", tiny_kitti_config()),
                        ("tartanair", tiny_tartanair_config()),
-                       ("kitti_occluded", tiny_kitti_config(occluded_cls=True))):
+                       ("kitti_occluded", tiny_kitti_config(occluded_cls=True)),
+                       ("nyu", tiny_nyu_config())):
         cpu_model = randomize_weights(OccDepthModel(tcfg), seed=1).eval()
         gpu_model = copy.deepcopy(cpu_model).to(dev)
-        tbatch = make_synthetic_batch(tcfg, batch_size=2, seed=3)
+        tbatch = make_synthetic_batch(tcfg, batch_size=2, seed=3,
+                                      with_labels=tcfg.dataset == "NYU")
         reset_counts()
         with torch.inference_mode():
             out_cpu = cpu_model({k: torch.from_numpy(v)
@@ -456,15 +493,16 @@ def phase_k2(dev) -> dict:
     return res
 
 
-def flagship_dw_shapes(dev, hw=(370, 1220)) -> list:
-    """(C, H, W, k) of every K4 conv of the b3 encoder at batch 1 on an
-    hw = (H, W) image (the flagship's by default), read from the model by
-    forward hooks (in forward order)."""
+def flagship_dw_shapes(dev, hw=(370, 1220),
+                       backbone="tf_efficientnet_b3_ns") -> list:
+    """(C, H, W, k) of every K4 conv of the encoder (the flagship's b3 by
+    default) at batch 1 on an hw = (H, W) image (the flagship's by
+    default), read from the model by forward hooks (in forward order)."""
     import torch
 
     from occdepth_tpu_torch.models.efficientnet import DWConv2d, EfficientNet
 
-    enc = EfficientNet("tf_efficientnet_b3_ns", dw_grad="pallas").to(dev)
+    enc = EfficientNet(backbone, dw_grad="pallas").to(dev)
     shapes = []
     for m in enc.modules():
         if isinstance(m, DWConv2d) and m.fast_grad:
@@ -711,7 +749,7 @@ def read_counts() -> dict:
 
 
 def fit_and_check(cfg, train_ds, val_ds, logdir, expected, tag,
-                  smi: str) -> dict:
+                  smi: str, n_dw_expected: int = 22) -> dict:
     """A Trainer fits TRAIN_STEPS steps at batch 1 on two-sample train_ds,
     validating on val_ds at each epoch end (steps 2 and 3), with the launch
     counts set to 0 just before.  Checks: every `expected` loss term
@@ -775,7 +813,8 @@ def fit_and_check(cfg, train_ds, val_ds, logdir, expected, tag,
           f"{tag}: a loss term is not finite")
     check(changed == len(trained) >= len(before) - 2,
           f"{tag}: {changed}/{len(trained)} params with a gradient changed")
-    check(n_dw == 22, f"{tag}: {n_dw} stride-1 depthwise convs (expected 22)")
+    check(n_dw == n_dw_expected, f"{tag}: {n_dw} stride-1 depthwise convs "
+          f"(expected {n_dw_expected})")
     check(launches["dw_filter_grad"] == n_dw * TRAIN_STEPS,
           f"{tag}: K4 launches {launches['dw_filter_grad']}")
     # the train path hands K4 contiguous NCHW x and g: no copies
@@ -836,15 +875,16 @@ def phase_train(dev, smi: str) -> dict:
     return fit
 
 
-def flagship_k3_shapes(dev, hw=(370, 1220)) -> list:
+def flagship_k3_shapes(dev, hw=(370, 1220),
+                       backbone="tf_efficientnet_b3_ns", feature=32) -> list:
     """(Ci, H, W, Co) of the decoder's ten 3x3 convs on an hw = (H, W)
-    image (the flagship's by default), read from the 2D UNet by forward
-    hooks (in forward order)."""
+    image (the flagship's b3 decoder of 32 channels on its image by
+    default), read from the 2D UNet by forward hooks (in forward order)."""
     import torch
 
     from occdepth_tpu_torch.models.unet2d import Conv3x3Fast, UNet2D
 
-    net = UNet2D("tf_efficientnet_b3_ns", 32, 1).to(dev).eval()
+    net = UNet2D(backbone, feature, 1).to(dev).eval()
     shapes = []
     for m in net.modules():
         if isinstance(m, Conv3x3Fast):
@@ -1322,58 +1362,42 @@ def k2_simt(p_logit, mega):
     return out
 
 
-def phase_ta_kernels(dev, sample) -> dict:
-    """16. K1+, K2, K4 and K3 at TartanAir's shapes vs their plain
-    versions: the fused lift on a 480x640 image's four scales into 691,200
-    voxels (batch 1, the full-size tree's rig and edge-case points), K2 at
-    the 30x12x30 bottleneck ((1, 4, 10,800, 1,350) @ (1, 1,350, 256)), K4
-    at the b3 encoder's stride-1 depthwise convs on a 480x640 image, K3 at
-    the decoder's ten 3x3 convs on a 480x640 frame (2 images)."""
+def lift_at_shape(dev, rig, hw, C, cases, tag, edge_seed, map_seed) -> dict:
+    """The fused lift at batch 1 into the rig's N voxels from the four
+    scales of an hw image at C channels, vs its plain version in each
+    (dtype, layout, points) case of `cases` (points "rig": the tree's
+    projection, "edges": `lift_points`' edge cases); then its device
+    times on the rig with bf16 NCHW maps (the kernel, the plain version,
+    the per-scale path), the bytes bound, and the train step's forward +
+    backward (CUDA events)."""
     import torch
 
-    from occdepth_tpu_torch.ops.crp_matmul import (
-        crp_relation_matmul,
-        crp_relation_matmul_reference,
-        tma_reads_mega,
-        wgmma_path,
-    )
-    from occdepth_tpu_torch.ops.dw_conv import K4_RTOL
     from occdepth_tpu_torch.ops.flosp_gather import (
         flosp_stereo_lift,
         flosp_stereo_lift_reference,
     )
-    from occdepth_tpu_torch.scripts import bench_dwconv
     from occdepth_tpu_torch.testing import lift_points
 
-    res = {}
-    # ---- K1+: the fused lift ----
-    C, N = 32, math.prod(TA_GRID)
-    rig = [torch.from_numpy(sample[k][None]).to(dev)
-           for k in ("projected_pix", "fov_mask")]
-    check(tuple(rig[0].shape) == (1, 2, N, 1, 2),
-          f"TartanAir projection {tuple(rig[0].shape)}")
+    N = rig[0].shape[2]
     edges = [torch.from_numpy(a).to(dev) for a in
-             lift_points(np.random.RandomState(16), 1, N, 1, TA_HW)]
+             lift_points(np.random.RandomState(edge_seed), 1, N, 1, hw)]
     max_err = 0.0
-    for i, (dtype, layout, name, (pix, fov)) in enumerate((
-            (torch.bfloat16, "nchw", "rig", rig),
-            (torch.float32, "nchw", "rig", rig),
-            (torch.bfloat16, "channels_last", "edges", edges),
-            (torch.float32, "nchw", "edges", edges))):
-        maps = lift_maps(dev, dtype, layout, 1, C, TA_HW, seed=20 + i)
+    for i, (dtype, layout, name) in enumerate(cases):
+        pix, fov = rig if name == "rig" else edges
+        maps = lift_maps(dev, dtype, layout, 1, C, hw, seed=map_seed + i)
         out = flosp_stereo_lift(maps, pix, fov, LIFT_SCALES)
         ref = flosp_stereo_lift_reference(maps, pix, fov, LIFT_SCALES)
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
-        log("ta_lift_check", points=name, layout=layout,
+        log(f"{tag}_check", points=name, layout=layout, C=C,
             dtype=str(dtype).replace("torch.", ""), max_abs_err=err,
             tol=LIFT_TOL)
-        check(err <= LIFT_TOL, f"TartanAir lift {name} {dtype} {layout} "
+        check(err <= LIFT_TOL, f"{tag} {name} {dtype} {layout} C={C} "
                                f"error {err} > {LIFT_TOL}")
         max_err = max(max_err, err)
         del maps, out, ref
     pix, fov = rig
-    maps = lift_maps(dev, torch.bfloat16, "nchw", 1, C, TA_HW, seed=29)
+    maps = lift_maps(dev, torch.bfloat16, "nchw", 1, C, hw, seed=map_seed + 9)
     lift = {"max_abs_err": max_err, "fov_share": fov.all(dim=1).float()
             .mean().item()}
     lift["ms"] = device_ms(
@@ -1393,29 +1417,47 @@ def phase_ta_kernels(dev, sample) -> dict:
     lift["fwd_bwd_ms_events"] = cuda_ms(lambda: torch.autograd.grad(
         flosp_stereo_lift(leaves, pix, fov, LIFT_SCALES), leaves, cot),
         iters=5)
-    log("ta_lift", shape=f"(1,{N},P1,{C}) bf16 NCHW, rig projection",
+    log(tag, shape=f"(1,{N},P1,{C}) bf16 NCHW, rig projection",
         **{k: (f"{v:.5f}" if isinstance(v, float) else v)
            for k, v in lift.items()},
         bound_share=f"{lift['bound_ms'] / lift['ms']:.3f}")
     check(lift["ms"] >= lift["bound_ms"],
-          f"TartanAir lift {lift['ms']} ms under its bound")
-    check(lift["fov_share"] > 0.5, "the tree's rig sees too little")
-    res["lift"] = lift
-    del maps, leaves, cot
+          f"{tag} C={C} {lift['ms']} ms under its bound")
+    check(lift["fov_share"] > 0.5, f"{tag}: the tree's rig sees too little")
+    return lift
 
-    # ---- K2 at M = 1,350: bf16 on wgmma (mega padded), fp32 on SIMT ----
-    R, Nv, M, Cc = K2_RELATIONS, N // 64, 1350, 256
-    g = torch.Generator(device=dev).manual_seed(17)
+
+def k2_at_shape(dev, N, M, C, padded, tag, seed) -> dict:
+    """K2 at batch 1, (1, R, N, M) @ (1, M, C) in the CRP's layout, vs its
+    plain version in bf16 (the wgmma kernel, with the copies `padded`
+    names: "logits", "mega") and fp32 (SIMT); device times of the kernel
+    and the plain version, and in bf16 of the SIMT kernel (the route
+    before the padding) and torch.sigmoid + torch.matmul."""
+    import torch
+
+    from occdepth_tpu_torch.ops.crp_matmul import (
+        crp_relation_matmul,
+        crp_relation_matmul_reference,
+        tma_reads_logits,
+        tma_reads_mega,
+        wgmma_path,
+    )
+
+    R = K2_RELATIONS
+    g = torch.Generator(device=dev).manual_seed(seed)
     k2 = {}
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).replace("torch.", "")
-        logits = torch.randn(1, R, M, Nv, device=dev, generator=g).to(dtype)
-        mega = torch.randn(1, Cc, M, device=dev, generator=g).to(dtype)
+        logits = torch.randn(1, R, M, N, device=dev, generator=g).to(dtype)
+        mega = torch.randn(1, C, M, device=dev, generator=g).to(dtype)
         args = (logits.transpose(2, 3), mega.transpose(1, 2))
         path = "wgmma" if wgmma_path(*args) else "simt"
         check(path == ("wgmma" if dtype == torch.bfloat16 else "simt"),
-              f"TartanAir K2 {name} took the {path} kernel")
-        check(not tma_reads_mega(args[1]), "TartanAir mega needs no padding")
+              f"{tag} {name} took the {path} kernel")
+        pads = {"logits": not tma_reads_logits(args[0]),
+                "mega": not tma_reads_mega(args[1])}
+        check({k for k, v in pads.items() if v} == set(padded),
+              f"{tag}: padded copies {pads}, expected {padded}")
         ref = crp_relation_matmul_reference(*args)
         tol = K2_RTOL * ref.abs().max().item()
         err = (crp_relation_matmul(*args) - ref).abs().max().item()
@@ -1425,38 +1467,47 @@ def phase_ta_kernels(dev, sample) -> dict:
                  lambda: crp_relation_matmul_reference(*args))}
         es = logits.element_size()
         r["bound_ms"], r["bound_by"] = bound_ms(
-            R * Nv * M * es + M * Cc * es + R * Nv * Cc * 4,
-            2 * R * Nv * M * Cc,
+            R * N * M * es + M * C * es + R * N * C * 4,
+            2 * R * N * M * C,
             BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
         if dtype == torch.bfloat16:
             simt_err = (k2_simt(*args) - ref).abs().max().item()
-            check(simt_err <= tol, f"K2 SIMT bf16 error {simt_err} > {tol}")
+            check(simt_err <= tol, f"{tag} SIMT bf16 error {simt_err} > {tol}")
             r["simt_ms"] = device_ms(lambda: k2_simt(*args))
             r["library_ms"] = device_ms(
                 lambda: torch.sigmoid(args[0]) @ args[1].unsqueeze(1))
-        log("ta_k2", dtype=name, shape=f"1x{R}x({Nv},{M})@({M},{Cc})",
+        log(tag, dtype=name, shape=f"1x{R}x({N},{M})@({M},{C})",
+            padded=",".join(padded) or "none",
             tol=f"{tol:.3e}", **{k: (f"{v:.5f}" if isinstance(v, float)
                                      and k != "max_abs_err" else v)
                                  for k, v in r.items()},
             bound_share=f"{r['bound_ms'] / r['ms']:.3f}")
-        check(err <= tol, f"TartanAir K2 {name} error {err} > {tol}")
+        check(err <= tol, f"{tag} {name} error {err} > {tol}")
         check(r["ms"] >= r["bound_ms"],
-              f"TartanAir K2 {name} {r['ms']} ms under its bound")
+              f"{tag} {name} {r['ms']} ms under its bound")
         k2[name] = r
         del logits, mega, ref
-    res["k2"] = k2
+    return k2
 
-    # ---- K4 at the encoder's stride-1 depthwise convs on 480x640 ----
-    shapes = flagship_dw_shapes(dev, TA_HW)
-    check(len(shapes) == 22, f"{len(shapes)} stride-1 dw convs at 480x640")
-    gk = torch.Generator(device=dev).manual_seed(18)
+
+def k4_at_shapes(dev, shapes, tag, seed) -> dict:
+    """K4 vs its plain version at an encoder's stride-1 depthwise convs
+    (batch 1, bf16 and fp32), and the device times (bench_dwconv's timing)
+    of K4, the plain version and cuDNN's weight gradient at each distinct
+    shape in bf16, weighted by its count; sums over the convs."""
+    import torch
+
+    from occdepth_tpu_torch.ops.dw_conv import K4_RTOL
+    from occdepth_tpu_torch.scripts import bench_dwconv
+
+    gk = torch.Generator(device=dev).manual_seed(seed)
     max_err = max_rel = 0.0
     for C4, H, W, k in shapes:
         for dtype in (torch.bfloat16, torch.float32):
             x, _, gy = bench_dwconv.make_inputs(H, W, C4, k, 1, dtype, gk)
             err, ref_max = bench_dwconv.check_shape(x, gy, k)
-            check(err <= K4_RTOL * ref_max, f"TartanAir K4 {dtype} "
-                  f"({C4},{H},{W},k{k}) error {err} > {K4_RTOL * ref_max}")
+            check(err <= K4_RTOL * ref_max, f"{tag} {dtype} ({C4},{H},{W},"
+                  f"k{k}) error {err} > {K4_RTOL * ref_max}")
             max_err, max_rel = max(max_err, err), max(max_rel, err / ref_max)
     counts = {}
     for sh in shapes:
@@ -1468,12 +1519,12 @@ def phase_ta_kernels(dev, sample) -> dict:
                                             gk)
         r = bench_dwconv.time_shape(x, w, gy, 1, repeats=20)
         kinds.add(r["bound_by"])
-        log("ta_k4", shape=f"(1,{C4},{H},{W})", k=k, count=n,
+        log(tag, shape=f"(1,{C4},{H},{W})", k=k, count=n,
             ms=f"{r['dw_pallas_ms']:.4f}", plain_ms=f"{r['plain_ms']:.4f}",
             library_ms=f"{r['dw_ms']:.4f}", bound_ms=f"{r['bound_ms']:.4f}",
             bound_share=f"{r['bound_share']:.3f}")
         check(r["dw_pallas_ms"] >= r["bound_ms"],
-              f"TartanAir K4 ({C4},{H},{W},k{k}) under its bound")
+              f"{tag} ({C4},{H},{W},k{k}) under its bound")
         for key, v in (("ms", r["dw_pallas_ms"]), ("plain_ms", r["plain_ms"]),
                        ("library_ms", r["dw_ms"]),
                        ("bound_ms", r["bound_ms"])):
@@ -1482,12 +1533,38 @@ def phase_ta_kernels(dev, sample) -> dict:
     tot.update(max_abs_err=max_err, max_rel_err=max_rel, n_convs=len(shapes),
                bound_by="bytes" if kinds == {"bytes"} else "operations",
                bound_share=tot["bound_ms"] / tot["ms"])
-    log("ta_k4_total", **{k: (f"{v:.4f}" if isinstance(v, float)
-                              and "err" not in k else v)
-                          for k, v in tot.items()})
-    res["k4"] = tot
+    log(f"{tag}_total", **{k: (f"{v:.4f}" if isinstance(v, float)
+                               and "err" not in k else v)
+                           for k, v in tot.items()})
+    return tot
 
-    # ---- K3 at the decoder's ten 3x3 convs on a 480x640 frame ----
+
+def phase_ta_kernels(dev, sample) -> dict:
+    """16. K1+, K2, K4 and K3 at TartanAir's shapes vs their plain
+    versions: the fused lift on a 480x640 image's four scales into 691,200
+    voxels (batch 1, the full-size tree's rig and edge-case points), K2 at
+    the 30x12x30 bottleneck ((1, 4, 10,800, 1,350) @ (1, 1,350, 256)), K4
+    at the b3 encoder's stride-1 depthwise convs on a 480x640 image, K3 at
+    the decoder's ten 3x3 convs on a 480x640 frame (2 images)."""
+    import torch
+
+    N = math.prod(TA_GRID)
+    rig = [torch.from_numpy(sample[k][None]).to(dev)
+           for k in ("projected_pix", "fov_mask")]
+    check(tuple(rig[0].shape) == (1, 2, N, 1, 2),
+          f"TartanAir projection {tuple(rig[0].shape)}")
+    res = {"lift": lift_at_shape(
+        dev, rig, TA_HW, 32, ((torch.bfloat16, "nchw", "rig"),
+                              (torch.float32, "nchw", "rig"),
+                              (torch.bfloat16, "channels_last", "edges"),
+                              (torch.float32, "nchw", "edges")),
+        "ta_lift", edge_seed=16, map_seed=20)}
+    # K2 at M = 1,350: bf16 on wgmma (mega padded), fp32 on SIMT
+    res["k2"] = k2_at_shape(dev, N // 64, 1350, 256, ("mega",), "ta_k2",
+                            seed=17)
+    shapes = flagship_dw_shapes(dev, TA_HW)
+    check(len(shapes) == 22, f"{len(shapes)} stride-1 dw convs at 480x640")
+    res["k4"] = k4_at_shapes(dev, shapes, "ta_k4", seed=18)
     shapes = flagship_k3_shapes(dev, TA_HW)
     check(len(shapes) == 10, f"{len(shapes)} decoder 3x3 convs at 480x640")
     g3 = torch.Generator(device=dev).manual_seed(19)
@@ -1691,12 +1768,245 @@ def phase_occluded(dev, smi: str) -> dict:
     return fit
 
 
+def nyu_overrides(base: str, run: str, **kw) -> dict:
+    """Overrides that point an NYU config at the tree under `base`, with
+    the run's own logdir."""
+    return dict(data_root=base, data_preprocess_root=base,
+                logdir=os.path.join(base, run), **kw)
+
+
+def phase_nyu_kernels(dev, sample) -> dict:
+    """20. K1+, K2, K4 and K3 at NYU's shapes vs their plain versions: the
+    fused lift of the real and the virtual view into 129,600 voxels
+    (batch 1, the full-size tree's projection and edge-case points) from a
+    480x640 image's four scales at b4's C = 100 (bf16 rows of 200 bytes:
+    the kernel's one-element-a-lane form) and b7's C = 200, in bf16 and
+    fp32, NCHW and channels-last; K2 at the 15x9x15 bottleneck, (1, 4,
+    2,025, 196) @ (1, 196, 800) and b7's C = 1,600, bf16 on wgmma (logits
+    and mega padded) beside the SIMT kernel and sigmoid + matmul, fp32 on
+    SIMT; K4 at the b4 encoder's stride-1 depthwise convs on a 480x640
+    image; K3 at the b4 decoder's ten 3x3 convs (100 channels out)."""
+    import torch
+
+    N = math.prod(NYU_GRID)
+    rig = [torch.from_numpy(sample[k][None]).to(dev)
+           for k in ("projected_pix", "fov_mask")]
+    check(tuple(rig[0].shape) == (1, 2, N, 1, 2),
+          f"NYU projection {tuple(rig[0].shape)}")
+    cases = tuple((dt, layout, points) for points in ("rig", "edges")
+                  for layout in ("nchw", "channels_last")
+                  for dt in (torch.bfloat16, torch.float32))
+    res = {"lift": lift_at_shape(dev, rig, NYU_HW, 100, cases, "nyu_lift",
+                                 edge_seed=20, map_seed=40),
+           "lift_b7": lift_at_shape(dev, rig, NYU_HW, 200, cases,
+                                    "nyu_lift_b7", edge_seed=21,
+                                    map_seed=60)}
+    n_crp, m_crp = 15 * 9 * 15, 7 * 4 * 7
+    res["k2"] = k2_at_shape(dev, n_crp, m_crp, 800, ("logits", "mega"),
+                            "nyu_k2", seed=22)
+    res["k2_b7"] = k2_at_shape(dev, n_crp, m_crp, 1600, ("logits", "mega"),
+                               "nyu_k2_b7", seed=23)
+    shapes = flagship_dw_shapes(dev, NYU_HW, "tf_efficientnet_b4_ns")
+    res["k4"] = k4_at_shapes(dev, shapes, "nyu_k4", seed=24)
+    shapes = flagship_k3_shapes(dev, NYU_HW, "tf_efficientnet_b4_ns", 100)
+    check(len(shapes) == 10, f"{len(shapes)} b4 decoder 3x3 convs")
+    g3 = torch.Generator(device=dev).manual_seed(25)
+    res["k3"] = {str(dt).replace("torch.", ""): k3_at_shapes(
+        dev, shapes, dt, g3, "nyu_k3") for dt in (torch.bfloat16,
+                                                  torch.float32)}
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_nyu_train(dev, smi: str, base: str, n_dw: int) -> dict:
+    """21. NYU training: the shipped b4 config (feature 100, 480x640
+    RGB-D, 60x36x60, 12 classes) in bf16 with dw_conv_grad=pallas on the
+    full-size tree fits 3 steps at batch 1 and validates on the test split
+    at each epoch end; the train CLI for 2 steps, and again to resume;
+    then the b7 config (feature 200) at full width: two train steps and
+    one eval forward."""
+    import torch
+
+    from occdepth_tpu_torch.config import default_config_path, load_config
+    from occdepth_tpu_torch.training import Trainer
+    from occdepth_tpu_torch.training.step import eval_step, train_step
+    from occdepth_tpu_torch.training.trainer import make_datasets
+
+    overrides = nyu_overrides(base, "train", compute_dtype="bfloat16",
+                              dw_conv_grad="pallas", log_every_n_steps=1)
+    cfg = load_config(default_config_path(NYU_B4), overrides=overrides)
+    train_ds, val_ds = make_datasets(cfg)
+    check(len(train_ds) == len(val_ds) == NYU_FRAMES,
+          f"NYU tree: {len(train_ds)} train, {len(val_ds)} test")
+    expected = {"train/loss", "train/loss_relation_ce_super",
+                "train/loss_ssc", "train/loss_sem_scal",
+                "train/loss_geo_scal", "train/loss_frustums"}
+    fit = fit_and_check(cfg, train_ds, val_ds, os.path.join(base, "fit"),
+                        expected, "nyu_train", smi, n_dw_expected=n_dw)
+    del fit["trainer"], fit["before"]
+    torch.cuda.empty_cache()
+
+    args = ["--config", default_config_path(NYU_B4),
+            *(f"{k}={v}" for k, v in overrides.items())]
+    lines = run_cli("train", args + ["--max-steps", "2"], "nyu_train_cli")
+    check("train: steps 0 -> 2" in " ".join(lines),
+          "the NYU train CLI did not take 2 steps")
+    lines = run_cli("train", args + ["--max-steps", "3"],
+                    "nyu_train_cli_resume")
+    check("resumed from step 2" in lines
+          and "train: steps 2 -> 3" in " ".join(lines),
+          "the NYU train CLI did not resume at step 2")
+
+    # b7 at full width: two train steps (the first pays one-time costs:
+    # cuDNN's plans, the allocator), then one eval forward
+    cfg7 = load_config(default_config_path(NYU_B7), overrides=nyu_overrides(
+        base, "b7", compute_dtype="bfloat16", dw_conv_grad="pallas"))
+    trainer = Trainer(cfg7)
+    n_dw7 = sum(1 for m in trainer.model.modules()
+                if getattr(m, "fast_grad", False))
+    batches = [trainer._to_device({
+        k: np.asarray(v)[None] for k, v in ds[0].items()
+        if k not in ("frame_id", "sequence")}) for ds in (train_ds, val_ds)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    step_ms, logs = [], {}
+    for _ in range(2):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        logs, _, _ = train_step(cfg7, trainer.model, trainer.optimizer,
+                                batches[:1], 0.0, cfg7.lr)
+        ev[1].record()
+        torch.cuda.synchronize()
+        step_ms.append(ev[0].elapsed_time(ev[1]))
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    vlogs, _, _ = eval_step(cfg7, trainer.model, batches[1])
+    ev[1].record()
+    torch.cuda.synchronize()
+    n = read_counts()
+    b7 = {"launches": n, "train_ms": step_ms,
+          "eval_ms": ev[0].elapsed_time(ev[1]),
+          "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    log("nyu_b7", gpu=repr(smi), dw_convs=n_dw7,
+        train_step_ms=",".join(f"{t:.1f}" for t in step_ms),
+        eval_forward_ms=f"{b7['eval_ms']:.1f}",
+        peak_mem_gib=f"{b7['peak_gib']:.3f}",
+        **{f"{k}_launches": v for k, v in n.items()},
+        **{k: f"{float(v):.5f}" for k, v in logs.items()},
+        **{f"val_{k}": f"{float(v):.5f}" for k, v in vlogs.items()})
+    check(all(math.isfinite(float(v)) for v in [*logs.values(),
+                                                 *vlogs.values()]),
+          "NYU b7: a loss term is not finite")
+    check(n["dw_filter_grad"] == 2 * n_dw7 and n_dw7 > n_dw,
+          f"NYU b7: K4 launches {n['dw_filter_grad']} for {n_dw7} convs")
+    check(n["flosp_stereo_lift"] == n["crp_relation_matmul"] == 3
+          and n["stereo_cosine_fuse"] == n["conv3x3"] == 0,
+          f"NYU b7: launches {n} (lift and K2 once per forward)")
+    fit["b7"] = b7
+    del trainer, batches
+    torch.cuda.empty_cache()
+    return fit
+
+
+def phase_nyu_eval(dev, smi: str, base: str) -> dict:
+    """22. NYU evaluation of the tree's 2 test frames at batch 2 (sample
+    0's disparity warps both) from a reference-schema .ckpt of the b4
+    config: fp32 (TF32 off) under decoder_conv_impl=xla and =pallas (K3
+    under pallas only, confusion counts within CONF_FLIP_FRAC), bf16
+    ms/frame in turns, and the eval CLI, which must print the 12-class
+    table."""
+    import torch
+
+    from occdepth_tpu_torch.config import default_config_path, load_config
+    from occdepth_tpu_torch.data.params import NYU_CLASS_NAMES
+    from occdepth_tpu_torch.models import OccDepthModel
+    from occdepth_tpu_torch.scripts.eval import evaluate
+    from occdepth_tpu_torch.testing import randomize_weights
+
+    paths = nyu_overrides(base, "eval", batch_size_per_gpu=NYU_EVAL_BATCH)
+    cfg = load_config(default_config_path(NYU_B4),
+                      overrides=dict(paths, compute_dtype="float32"))
+    ckpt = os.path.join(base, "nyu_ref.ckpt")
+    sd = randomize_weights(OccDepthModel(cfg), seed=0).state_dict()
+    torch.save({"state_dict": {"model." + k: v for k, v in sd.items()}},
+               ckpt)
+    del sd
+    runs, launches = {}, {}
+    for impl in ("xla", "pallas"):
+        reset_counts()
+        runs[impl] = evaluate(dataclasses.replace(cfg, decoder_conv_impl=impl),
+                              torch_ckpt=ckpt)
+        torch.cuda.synchronize()
+        launches[impl] = read_counts()
+        log("nyu_eval_fp32", impl=impl, frames=runs[impl]["n_frames"],
+            mIoU=f"{runs[impl]['iou_ssc_mean']:.6f}",
+            loss=f"{runs[impl]['losses']['loss']:.5f}",
+            **{f"{k}_launches": v for k, v in launches[impl].items()})
+    n_batches = -(-NYU_FRAMES // NYU_EVAL_BATCH)
+    counted = int(runs["pallas"]["conf"].sum())
+    flips = int(np.abs(runs["pallas"]["conf"].astype(np.int64)
+                       - runs["xla"]["conf"]).sum()) // 2
+    log("nyu_eval_xla_vs_pallas", counted_voxels=counted, conf_diff=flips,
+        bound=int(CONF_FLIP_FRAC * counted))
+    check(launches["pallas"]["conv3x3"] == 10 * n_batches,
+          f"NYU: K3 launched {launches['pallas']['conv3x3']} times "
+          "under pallas")
+    check(launches["xla"]["conv3x3"] == 0, "NYU: K3 launched under xla")
+    for impl, n in launches.items():
+        check(n["flosp_stereo_lift"] == n["crp_relation_matmul"] == n_batches
+              and n["stereo_cosine_fuse"] == 0,
+              f"NYU {impl}: lift/K2/K1 launches {n}")
+    for impl, st in runs.items():
+        n_vox = int(st["conf"].sum())
+        check(st["n_frames"] == NYU_FRAMES
+              and n_vox == NYU_FRAMES * math.prod(cfg.full_scene_size),
+              f"NYU {impl}: {st['n_frames']} frames, {n_vox} voxels")
+        check(all(math.isfinite(v) for v in [
+            st["precision"], st["recall"], st["iou"], st["iou_ssc_mean"],
+            *st["iou_ssc"].tolist(), *st["losses"].values()]),
+            f"NYU {impl}: a stat is not finite")
+    check(flips <= CONF_FLIP_FRAC * counted,
+          f"NYU pallas vs xla confusion differs in {flips} voxels")
+
+    times, peaks = {"xla": [], "pallas": []}, {"xla": [], "pallas": []}
+    bf16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    for impl in ("xla", "pallas"):  # one untimed pass of each
+        evaluate(dataclasses.replace(bf16, decoder_conv_impl=impl),
+                 torch_ckpt=ckpt)
+    for impl in ("xla", "pallas", "pallas", "xla"):
+        torch.cuda.reset_peak_memory_stats()
+        st = evaluate(dataclasses.replace(bf16, decoder_conv_impl=impl),
+                      torch_ckpt=ckpt)
+        times[impl].append(st["ms_per_frame"])
+        peaks[impl].append(torch.cuda.max_memory_allocated() / 2**30)
+    log("nyu_eval_bf16", gpu=repr(smi), batch=NYU_EVAL_BATCH,
+        ms_per_frame_xla=",".join(f"{t:.2f}" for t in times["xla"]),
+        ms_per_frame_pallas=",".join(f"{t:.2f}" for t in times["pallas"]),
+        peak_gib_xla=f"{max(peaks['xla']):.3f}",
+        peak_gib_pallas=f"{max(peaks['pallas']):.3f}")
+
+    lines = run_cli("eval", [
+        "--config", default_config_path(NYU_B4), "--torch-ckpt", ckpt,
+        "decoder_conv_impl=pallas", "compute_dtype=bfloat16",
+        *(f"{k}={v}" for k, v in paths.items())], "nyu_eval_cli")
+    check("test======" in lines
+          and f"class IoU: {NYU_CLASS_NAMES}, " in lines
+          and len(lines[lines.index("test======") + 3].split()) == 12
+          and any(line.startswith("mIoU=") for line in lines),
+          "the eval CLI printed no 12-class NYU table")
+    check("WARNING" not in " ".join(lines), "the NYU eval CLI missed keys")
+    return {"launches": launches["pallas"], "times": times, "peaks": peaks,
+            "flips": flips, "counted": counted}
+
+
 def main() -> None:
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
     from occdepth_tpu_torch.config import default_config_path, load_config
+    from occdepth_tpu_torch.data.nyu import NYUDataset
     from occdepth_tpu_torch.data.tartanair import TartanAirDataset
     from occdepth_tpu_torch.ops import cuda_lib
     from occdepth_tpu_torch.scripts.profile_serve_stages import (
@@ -1705,7 +2015,9 @@ def main() -> None:
         stage_ms,
     )
     from occdepth_tpu_torch.testing import (
+        make_nyu_tree,
         make_tartanair_tree,
+        nyu_fov_share,
         tartanair_fov_share,
     )
 
@@ -1818,13 +2130,33 @@ def main() -> None:
         shutil.rmtree(ta_base, ignore_errors=True)
     occluded = phase_occluded(dev, smi)
 
+    # ---- 20-22. NYU kernels, training and eval ----
+    nyu_base = tempfile.mkdtemp(prefix="occdepth_nyu_")
+    try:
+        t0 = time.perf_counter()
+        make_nyu_tree(nyu_base, n_frames=NYU_FRAMES)
+        log("nyu_tree", grid=NYU_GRID, frames_per_split=NYU_FRAMES,
+            seconds=f"{time.perf_counter() - t0:.1f}",
+            both_views_fov_share=nyu_fov_share())
+        nyu_cfg = load_config(default_config_path(NYU_B4),
+                              overrides=nyu_overrides(nyu_base, "data"))
+        nyu = phase_nyu_kernels(dev, NYUDataset(nyu_cfg, "test")[0])
+        nyu_train = phase_nyu_train(dev, smi, nyu_base,
+                                    nyu["k4"]["n_convs"])
+        nyu_eval = phase_nyu_eval(dev, smi, nyu_base)
+    finally:
+        shutil.rmtree(nyu_base, ignore_errors=True)
+
     def by_path(name):
         paths = {"serve": launches[name], "train": train["launches"][name],
                  "eval": evaluation["launches"][name],
                  "probe": probes["launches"].get(name, 0),
                  "ta_train": ta_train["launches"][name],
                  "ta_eval": ta_eval["launches"][name],
-                 "occluded_train": occluded["launches"][name]}
+                 "occluded_train": occluded["launches"][name],
+                 "nyu_train": nyu_train["launches"][name],
+                 "nyu_b7": nyu_train["b7"]["launches"][name],
+                 "nyu_eval": nyu_eval["launches"][name]}
         return {"launches": sum(paths.values()), "launches_by_path": paths}
 
     def at_ta(r, keys=("max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -1856,6 +2188,13 @@ def main() -> None:
                                         "fwd_bwd_ms_events", "fov_share")},
              shape="batch 1, 691,200 voxels, C=32, bf16 NCHW maps of a "
                    "480x640 image, the tree's rig"),
+         "nyu": {name: dict(at_ta(r), **{
+             k: r[k] for k in ("yardstick_ms", "fwd_ms_events",
+                               "fwd_bwd_ms_events", "fov_share")},
+             shape=f"batch 1, 129,600 voxels, C={c}, bf16 NCHW maps of a "
+                   "480x640 image and its virtual view, the tree's rig")
+             for name, r, c in (("b4", nyu["lift"], 100),
+                                ("b7", nyu["lift_b7"], 200))},
          "timed": "serving shape: batch 2, 262,144 voxels, C=32, bf16 NCHW "
                   "maps (their channels-last copies timed), the rig's "
                   "projection, P=1; yardstick: per-scale index_select + K1"},
@@ -1871,6 +2210,12 @@ def main() -> None:
          "tartanair": {name: dict(at_ta(r), **{
              k: r[k] for k in ("kernel", "simt_ms", "library_ms") if k in r})
              for name, r in ta["k2"].items()},
+         "nyu": {f"{cfg_name}_{name}": dict(at_ta(r), **{
+             k: r[k] for k in ("kernel", "simt_ms", "library_ms") if k in r},
+             shape=f"(1,4,2025,196)@(1,196,{c}), logits and mega padded")
+             for cfg_name, res_k2, c in (("b4", nyu["k2"], 800),
+                                         ("b7", nyu["k2_b7"], 1600))
+             for name, r in res_k2.items()},
          "timed": "the four relations at batch 2 in one call, (4096,512)@"
                   "(512,256) each, bf16 (wgmma); fp32 (SIMT) beside"},
         {"name": "dw_filter_grad", "route": "cuda",
@@ -1885,6 +2230,10 @@ def main() -> None:
                            n_convs=ta["k4"]["n_convs"],
                            shape="the b3 encoder's stride-1 dw convs on a "
                                  "480x640 image, bf16, batch 1"),
+         "nyu": dict(at_ta(nyu["k4"]), library_ms=nyu["k4"]["library_ms"],
+                     n_convs=nyu["k4"]["n_convs"],
+                     shape="the b4 encoder's stride-1 dw convs on a 480x640 "
+                           "image, bf16, batch 1"),
          "timed": f"sum over the {k4['n_convs']} stride-1 depthwise convs "
                   "of one flagship view, bf16, batch 1"},
         {"name": "conv3x3", "route": "cuda",
@@ -1902,6 +2251,11 @@ def main() -> None:
          "tartanair": {name: dict(at_ta(r), library_ms=r["library_ms"],
                                   bound_share=r["bound_share"])
                        for name, r in ta["k3"].items()},
+         "nyu": {name: dict(at_ta(r), library_ms=r["library_ms"],
+                            bound_share=r["bound_share"],
+                            shape="the b4 decoder's ten 3x3 convs (100 "
+                                  "channels out) on a 480x640 frame, 2 images")
+                 for name, r in nyu["k3"].items()},
          "timed": "sum over the flagship decoder's ten 3x3 convs at batch 2 "
                   "images (one eval frame), bf16; fp32 (TF32 off) beside"},
         {"name": "row_gather", "route": "cuda",

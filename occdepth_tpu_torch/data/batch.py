@@ -26,11 +26,10 @@ from typing import Dict
 import numpy as np
 
 from occdepth_tpu_torch.config import OccDepthConfig
+from occdepth_tpu_torch.data.nyu import VIRTUAL_BASELINE
 from occdepth_tpu_torch.geometry.frustums_mask import compute_frustum_class_dists
 from occdepth_tpu_torch.geometry.projection import vox2pix
 from occdepth_tpu_torch.geometry.relations import compute_cp_mega_matrix
-
-VIRTUAL_BASELINE = 0.1  # metres: the NYU virtual right camera's baseline
 
 
 def default_intrinsics(cfg: OccDepthConfig) -> np.ndarray:

@@ -6,7 +6,7 @@ Counterpart of `occdepth_tpu/geometry/frustum.py`, batched over any leading
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,14 +39,16 @@ class FrustumGridSpec:
         return (hi - lo) / np.asarray(self.grid_size, dtype=np.float32)
 
 
-def voxel_grid_points(spec: FrustumGridSpec,
-                      device: torch.device) -> torch.Tensor:
-    """Voxel-centre points in lidar coords, (X, Y, Z, 3) float32."""
+def voxel_grid_points(spec: FrustumGridSpec, device: torch.device,
+                      pc_min: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Voxel-centre points in lidar/world coords, (X, Y, Z, 3) float32:
+    pc_min + voxel_size * (index + 0.5).  `pc_min` (3,) is NYU's origin of
+    the batch, else the spec's constant one."""
     vs = spec.voxel_size
-    pm = spec.pc_min
+    pm = spec.pc_min.tolist() if pc_min is None else pc_min.float()
     axes = [
         (torch.arange(n, dtype=torch.float32, device=device) + 0.5)
-        * float(vs[i]) + float(pm[i])
+        * float(vs[i]) + pm[i]
         for i, n in enumerate(spec.grid_size)
     ]
     gx, gy, gz = torch.meshgrid(*axes, indexing="ij")
@@ -58,6 +60,7 @@ def frustum_grid(
     lidar_to_cam: torch.Tensor,  # (..., 4, 4)
     cam_to_img: torch.Tensor,  # (..., 3, 4)
     ida_mat: torch.Tensor,  # (..., 4, 4)
+    pc_min: Optional[torch.Tensor] = None,  # (3,): NYU's voxel origin
 ) -> torch.Tensor:
     """Normalized (u, v, depth_bin) sampling grid, (..., X, Y, Z, 3).
 
@@ -65,7 +68,7 @@ def frustum_grid(
     non-finite entries become OUT_OF_BOUNDS_VAL.
     """
     lead = lidar_to_cam.shape[:-2]
-    pts = voxel_grid_points(spec, lidar_to_cam.device)
+    pts = voxel_grid_points(spec, lidar_to_cam.device, pc_min)
     pts_h = torch.cat([pts, torch.ones_like(pts[..., :1])], dim=-1)
     X, Y, Z = spec.grid_size
     pts_h = pts_h.reshape(X * Y * Z, 4)

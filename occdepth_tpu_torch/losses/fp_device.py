@@ -9,6 +9,10 @@ per frustum.  The sum is a one-hot matmul, which is deterministic on CUDA
 
 Reference quirks kept: the frustums use the unflipped projections and only
 the centre pattern point; pixel = round(x*f/z + c) rounds half to even.
+NYU's target is (X, Z_up, Y), so its voxels are taken in world (X, Y,
+Z_up) order, and with depth (`use_depth_gt`) the virtual right camera,
+the real one shifted by the baseline, frames voxels too, as the host's
+histograms do.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import torch
 
 from occdepth_tpu_torch.config import OccDepthConfig
 from occdepth_tpu_torch.data.batch import vox_origin_for
+from occdepth_tpu_torch.data.nyu import VIRTUAL_BASELINE
 
 
 def _axis_bounds(dim: int, size: int, device) -> Tuple[torch.Tensor, ...]:
@@ -66,13 +71,14 @@ def frustum_proportion_loss_device(
     """Per-frustum KL between predicted class mass and the GT histogram.
 
     Needs in `batch`: target, cam_k, T_velo_2_cam, frustums_class_dists
-    (and vox_origin for TartanAir).
+    (and vox_origin for NYU and TartanAir).
     """
-    if cfg.dataset == "NYU":
-        raise NotImplementedError("the NYU model is not ported yet")
+    nyu = cfg.dataset == "NYU"
     B, C = logits.shape[0], logits.shape[-1]
     target = batch["target"]
-    vol_dim = tuple(target.shape[1:])  # KITTI/TartanAir: world voxel order
+    if nyu:  # (X, Z_up, Y) -> world (X, Y, Z_up)
+        logits, target = logits.transpose(2, 3), target.transpose(2, 3)
+    vol_dim = tuple(target.shape[1:])
     voxel_size = cfg.voxel_size_meters * cfg.output_scale
     img_H, img_W = cfg.img_shape
     size = cfg.frustum_size
@@ -90,9 +96,14 @@ def frustum_proportion_loss_device(
     n_tiles = size * size
     cum_prob = logits.new_zeros((n_tiles, C), dtype=torch.float32)
     for b in range(B):
-        px, py, z = _project_centers(vol_dim, voxel_size, origins[b],
-                                     batch["T_velo_2_cam"][b],
-                                     batch["cam_k"][b])
+        cam_E, cam_k = batch["T_velo_2_cam"][b].float(), batch["cam_k"][b]
+        if nyu and cfg.use_depth_gt:  # the virtual right camera
+            shift = torch.eye(4, device=dev)
+            shift[0, 3] = -VIRTUAL_BASELINE
+            cam_E = torch.cat([cam_E, (shift @ cam_E[0])[None]])
+            cam_k = torch.cat([cam_k, cam_k[:1]])
+        px, py, z = _project_centers(vol_dim, voxel_size, origins[b], cam_E,
+                                     cam_k)
         ix, iy = _tile_index(px, sx, ex), _tile_index(py, sy, ey)
         tile = torch.where((ix >= 0) & (iy >= 0) & (z > 0), iy * size + ix,
                            n_tiles)  # (V, N); n_tiles = outside every tile

@@ -6,7 +6,9 @@ A camera-aware DepthNet predicts a per-pixel distribution over LID depth
 bins; `F.grid_sample` resamples that frustum volume into the voxel grid
 (float32, zeros padding, align_corners=False — the reference op the JAX
 package restructures for TPU gathers), and the cameras are averaged with
-the analytic resampled-ones mask.
+the analytic resampled-ones mask (`agg_voxel_mode: mean`) or summed
+(`sum`).  NYU's voxel bounds start at the batch's first `vox_origin`, and
+its weight volume leaves in the scene's (X, Z_up, Y) layout.
 """
 from __future__ import annotations
 
@@ -106,23 +108,24 @@ class FlospDepth(nn.Module):
     def __init__(self, conf: FlospDepthConfig, project_scale: int,
                  in_channels: int, dataset: str, return_depth: bool):
         super().__init__()
-        if dataset == "NYU":
-            raise NotImplementedError("NYU dynamic voxel bounds are not ported")
-        if conf.agg_voxel_mode != "mean":  # every shipped config averages
-            raise NotImplementedError(f"agg_voxel_mode={conf.agg_voxel_mode}")
+        if conf.agg_voxel_mode not in ("mean", "sum"):
+            raise ValueError(f"agg_voxel_mode={conf.agg_voxel_mode}")
         self.conf = conf
+        self.dataset = dataset
         self.return_depth = return_depth
         self.spec = grid_spec(conf, project_scale)
         self.depth_net = nn.Sequential(
             DepthNet(in_channels, conf.mid_channels, conf.depth_channels)
         )
 
-    def forward(self, img_feat, cam_k, T_velo_2_cam, ida_mats):
+    def forward(self, img_feat, cam_k, T_velo_2_cam, ida_mats,
+                vox_origin=None):
         """img_feat (B, V, C, h, w); cam_k (B, V, 3, 3); T_velo_2_cam and
-        ida_mats (B, V, 4, 4).
+        ida_mats (B, V, 4, 4); vox_origin (B, 3), read for NYU only.
 
-        Returns the (B, X, Y, Z) float32 weight volume, plus the
-        (B, V, D, h, w) float32 depth distribution if `return_depth`.
+        Returns the (B, X, Y, Z) float32 weight volume (NYU: (B, X, Z_up,
+        Y), the scene layout), plus the (B, V, D, h, w) float32 depth
+        distribution if `return_depth`.
         """
         B, V, C, h, w = img_feat.shape
         D = self.conf.depth_channels
@@ -144,7 +147,11 @@ class FlospDepth(nn.Module):
             [cam_k.float(), cam_k.new_zeros((B, V, 3, 1), dtype=torch.float32)],
             dim=-1,
         )
-        grids = frustum_grid(self.spec, T_velo_2_cam, cam_to_img, ida_mats)
+        # NYU's voxel bounds move with the scene: the first sample's origin
+        # serves the whole batch, as in the reference
+        pc_min = vox_origin[0] if self.dataset == "NYU" else None
+        grids = frustum_grid(self.spec, T_velo_2_cam, cam_to_img, ida_mats,
+                             pc_min)
         X, Y, Z = self.spec.grid_size
         voxel = F.grid_sample(
             vol, grids.reshape(B * V, X, Y, Z, 3), mode="bilinear",
@@ -153,6 +160,8 @@ class FlospDepth(nn.Module):
 
         if V == 1:
             agg = voxel[:, 0]
+        elif self.conf.agg_voxel_mode == "sum":
+            agg = voxel.sum(dim=1)
         else:  # mean over the cameras that see the voxel
             masks = grid_sample_3d_ones((D, h, w), grids).sum(dim=1)
             agg = voxel.sum(dim=1)
@@ -160,6 +169,8 @@ class FlospDepth(nn.Module):
                 masks > 0, agg / torch.where(masks > 0, masks,
                                              torch.ones_like(masks)), agg
             )
+        if self.dataset == "NYU":  # world (X, Y, Z_up) -> (X, Z_up, Y)
+            agg = agg.transpose(2, 3)
         if self.return_depth:
             return agg, depth.reshape(B, V, D, h, w)
         return agg

@@ -5,13 +5,13 @@ batched over relations: one launch computes every (batch item, relation)
 product, with mega shared by the relations of a batch item.  For CPU
 tensors the wrapper runs the plain PyTorch version; for CUDA tensors it
 launches the kernel or raises.  bf16 operands with the logits in the
-model's layout (voxel-contiguous, the other strides multiples of 16 bytes,
-16-byte aligned) take the wgmma kernel, whose sigmoid is split into two
-bf16 terms (`split_bf16`); mega goes to it as is where TMA can read it
-(mega-voxel-contiguous, strides multiples of 16 bytes), else as the
-padded copy `pad_mega` makes (TartanAir's M = 1,350 mega-voxels: a
-2,700-byte stride).  fp32 operands and other logits layouts take the SIMT
-kernel.  On
+model's layout (voxel-contiguous) take the wgmma kernel, whose sigmoid is
+split into two bf16 terms (`split_bf16`).  Each operand goes to it as is
+where TMA can read it (its contiguous dim unit-stride, the other strides
+multiples of 16 bytes, 16-byte aligned), else as a padded copy:
+`pad_logits` for NYU's N = 2,025 voxels (a 4,050-byte stride), `pad_mega`
+for TartanAir's M = 1,350 mega-voxels (a 2,700-byte stride).  fp32
+operands and other logits layouts take the SIMT kernel.  On
 CUDA with gradients enabled the kernel is the forward of an autograd
 Function whose backward is the plain version's gradient as two matmuls
 (the JAX package computes them outside any Pallas kernel too):
@@ -103,13 +103,33 @@ def _sane_strides(t: torch.Tensor) -> list:
 
 def wgmma_path(p_logit: torch.Tensor, mega: torch.Tensor) -> bool:
     """Whether (B, R, N, M) logits and (B, M, C) mega take the wgmma kernel:
-    bf16, logits voxel-contiguous with every other stride a multiple of 16
-    bytes and 16-byte aligned.  Mega of any layout does (`pad_mega`)."""
+    bf16, logits voxel-contiguous.  Other strides of either operand that
+    TMA cannot read are made readable by a padded copy (`pad_logits`,
+    `pad_mega`)."""
     if p_logit.dtype != torch.bfloat16 or mega.dtype != torch.bfloat16:
         return False
+    return _sane_strides(p_logit)[2] == 1
+
+
+def tma_reads_logits(p_logit: torch.Tensor) -> bool:
+    """Whether the wgmma kernel's TMA reads (B, R, N, M) bf16 logits as
+    they are: voxel-contiguous, the other strides multiples of 16 bytes,
+    16-byte aligned."""
     ps = _sane_strides(p_logit)
     return (ps[2] == 1 and all(s % 8 == 0 for s in (ps[0], ps[1], ps[3]))
             and p_logit.data_ptr() % 16 == 0)
+
+
+def pad_logits(p_logit: torch.Tensor) -> torch.Tensor:
+    """(B, R, N, M) logits as the wgmma kernel's TMA reads them: a (B, R,
+    N, M) view of a new (B, R, M, Np) buffer, Np = N rounded up to a
+    multiple of 8.  Strides (R * M * Np, M * Np, 1, Np): 16-byte multiples
+    in bf16.  The kernel reads only the view (TMA zero-fills its last
+    voxel tile past N), so the padding columns stay unwritten."""
+    B, R, N, M = p_logit.shape
+    buf = p_logit.new_empty(B, R, M, -(-N // 8) * 8)
+    buf[..., :N] = p_logit.transpose(2, 3)
+    return buf[..., :N].transpose(2, 3)
 
 
 def tma_reads_mega(mega: torch.Tensor) -> bool:
@@ -160,6 +180,8 @@ def _launch(p_logit, mega):
     out = torch.empty((B, R, C, N), dtype=torch.float32,
                       device=p4.device).transpose(2, 3)
     path = int(wgmma_path(p4, g3))
+    if path and not tma_reads_logits(p4):
+        p4 = pad_logits(p4)
     if path and not tma_reads_mega(g3):
         g3 = pad_mega(g3)
     ps, gs = _sane_strides(p4), _sane_strides(g3)

@@ -6,7 +6,8 @@
 At a shipped config (`--config`, a name under occdepth_tpu/configs: the
 flagship KITTI stereo config by default, b3, feature 32, 370x1220 stereo,
 256x256x32 grid; `tartanair/flosp_crp_cascadecls` for TartanAir's 480x640
-stereo and 120x48x120 grid), in bf16 at batch 1 with seeded
+stereo and 120x48x120 grid; `NYU/multicam_flosp_crp_stereodepth_cascadecls`
+for NYU's 480x640 RGB-D and 60x36x60 grid), in bf16 at batch 1 with seeded
 default-initialised weights and seeded labelled synthetic batches, it
 reports:
   1. ms/step of `train_step` with `dw_conv_grad` = xla (PyTorch's own

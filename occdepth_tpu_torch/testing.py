@@ -1,6 +1,6 @@
 """Reduced-size configs, seeded random weights, synthetic on-disk
-SemanticKITTI and TartanAir trees, the fp32-noise-aware comparison helpers
-and the stereo-lift inputs for tests and smoke runs."""
+SemanticKITTI, TartanAir and NYU trees, the fp32-noise-aware comparison
+helpers and the stereo-lift inputs for tests and smoke runs."""
 from __future__ import annotations
 
 import copy
@@ -15,6 +15,7 @@ from occdepth_tpu_torch.config import FlospDepthConfig, OccDepthConfig
 from occdepth_tpu_torch.data.kitti_io import pack_bits
 
 TINY_IMG_KITTI = (64, 96)
+TINY_IMG_NYU = (64, 80)
 
 
 def tiny_kitti_config(**overrides) -> OccDepthConfig:
@@ -67,6 +68,34 @@ def tiny_tartanair_config(**overrides) -> OccDepthConfig:
         n_classes=14,
         frustum_size=2,
         multi_view_mode=True,
+        cascade_cls=True,
+        context_prior=True,
+        trans_2d_to_3d="flosp",
+        project_1_8=False,
+        compute_dtype="float32",
+    )
+    base.update(overrides)
+    return OccDepthConfig(**base)
+
+
+def tiny_nyu_config(**overrides) -> OccDepthConfig:
+    """NYU RGB-D flosp (virtual stereo) + CRP + cascade at toy sizes (the
+    same config as `occdepth_tpu.testing.tiny_nyu_config`): a 16x8x16
+    (X, Z_up, Y) grid, CRP at 4x2x4."""
+    base = dict(
+        dataset="NYU",
+        full_scene_size=(16, 8, 16),
+        project_scale=1,
+        scene_size_m=(4.8, 4.8, 2.4),
+        voxel_size_m=0.3,
+        img_shape_hw=TINY_IMG_NYU,
+        feature=16,
+        feature_2d_oc=16,
+        n_classes=12,
+        n_relations=4,
+        frustum_size=2,
+        use_depth_gt=True,
+        multi_view_mode=False,
         cascade_cls=True,
         context_prior=True,
         trans_2d_to_3d="flosp",
@@ -377,4 +406,85 @@ def make_tartanair_tree(base: str, grid: tuple = TA_TOY_GRID,
                 "T_velo_2_cam": T.astype(np.float32),
             }
             with open(os.path.join(vox_dir, f"{frame}.pkl"), "wb") as f:
+                pickle.dump(data, f)
+
+
+def nyu_rig() -> tuple:
+    """(cam_pose, voxel_origin) of a synthetic NYU tree: the camera 1 m
+    behind the centre of the scene's low-x face at 1.44 m height, looking
+    along +x with z up, so most of the 4.8 x 4.8 x 2.88 m grid lies in
+    the real and the virtual view (`nyu_fov_share`)."""
+    pose = np.eye(4)
+    # camera axes in world: x right = -y, y down = -z, z forward = +x
+    pose[:3, :3] = [[0, 0, 1], [-1, 0, 0], [0, -1, 0]]
+    pose[:3, 3] = [-1.0, 0.0, 1.44]
+    return pose.astype(np.float32), np.array([0.0, -2.4, 0.0], np.float32)
+
+
+def nyu_fov_share() -> float:
+    """Share of a synthetic NYU tree's voxels inside both the real and
+    the virtual view's FOV, by the dataset's own geometry."""
+    from occdepth_tpu_torch.data.nyu import (
+        CAM_K,
+        IMG_H,
+        IMG_W,
+        SCENE_SIZE,
+        VIRTUAL_BASELINE,
+        VOXEL_SIZE,
+    )
+    from occdepth_tpu_torch.geometry.projection import vox2pix
+
+    pose, origin = nyu_rig()
+    T = np.linalg.inv(pose.astype(np.float64))
+    shift = np.eye(4)
+    shift[0, 3] = -VIRTUAL_BASELINE
+    fov = [vox2pix(E, CAM_K, origin.astype(np.float64), VOXEL_SIZE, IMG_W,
+                   IMG_H, SCENE_SIZE, 0)[1][:, 0] for E in (T, shift @ T)]
+    return float((fov[0] & fov[1]).mean())
+
+
+def make_nyu_tree(base: str, n_frames: int = 2) -> None:
+    """Build a synthetic full-size NYU tree under `base`: splits NYUtrain
+    and NYUtest, `n_frames` frames each.
+
+    Per frame: `NYU<split>/<name>.bin` (the scan list), a 480x640
+    `<name>_color.jpg`, a uint16 `<name>.png` depth map (metres x 8000,
+    0.5-8 m with a few zero holes) and the pickle
+    `base/NYU<split>/<name>.pkl` with `cam_pose`, `voxel_origin`,
+    `target_1_4` (60x36x60) and `target_1_16` (15x9x15) of 12 classes,
+    mostly empty, 255 invalid.  The rig (`nyu_rig`) puts most voxels in
+    view.  Pass `base` as data_root and data_preprocess_root.
+    """
+    import pickle
+
+    from PIL import Image
+
+    rng = np.random.RandomState(7)
+    pose, origin = nyu_rig()
+    labels = np.r_[0:12, 255]
+    probs = np.r_[0.6, np.full(11, 0.3 / 11), 0.1]
+    for split in ("train", "test"):
+        root = os.path.join(base, "NYU" + split)
+        pre = os.path.join(base, "base", "NYU" + split)
+        os.makedirs(root, exist_ok=True)
+        os.makedirs(pre, exist_ok=True)
+        for i in range(n_frames):
+            name = f"NYU{i + 1:04d}_0000"
+            with open(os.path.join(root, name + ".bin"), "wb") as f:
+                f.write(b"\0" * 16)
+            img = (rng.rand(480, 640, 3) * 255).astype(np.uint8)
+            Image.fromarray(img).save(os.path.join(root, name + "_color.jpg"))
+            depth = rng.uniform(0.5, 8.0, (480, 640)) * 8000
+            depth[rng.rand(480, 640) < 0.02] = 0.0
+            Image.fromarray(depth.astype(np.uint16)).save(
+                os.path.join(root, name + ".png"))
+            data = {
+                "cam_pose": pose,
+                "voxel_origin": origin,
+                "target_1_4": rng.choice(labels, size=(60, 36, 60),
+                                         p=probs).astype(np.uint8),
+                "target_1_16": rng.choice(labels, size=(15, 9, 15),
+                                          p=probs).astype(np.uint8),
+            }
+            with open(os.path.join(pre, name + ".pkl"), "wb") as f:
                 pickle.dump(data, f)

@@ -66,8 +66,10 @@ def make_datasets(cfg: OccDepthConfig):
         return (TartanAirDataset(cfg, "train", fliplr=0.5),
                 TartanAirDataset(cfg, "val", fliplr=0.0))
     if cfg.dataset == "NYU":
-        raise NotImplementedError(
-            "the NYU dataset is not ported yet (ROADMAP queue 1 item 5)")
+        from occdepth_tpu_torch.data.nyu import NYUDataset
+
+        return (NYUDataset(cfg, "train", fliplr=0.5),
+                NYUDataset(cfg, "test", fliplr=0.0))
     raise ValueError(cfg.dataset)
 
 

@@ -112,10 +112,16 @@ def _unet2d(out, cfg):
 
 def _unet3d(out, cfg):
     f = t = "net_3d_decoder"
-    _process(out, f"{f}/process_l1", f"{t}.process_l1.0", 3)
-    _bottleneck3d(out, f"{f}/down_l1/main", f"{t}.process_l1.1.main", 2, True)
-    _process(out, f"{f}/process_l2", f"{t}.process_l2.0", 3)
-    _bottleneck3d(out, f"{f}/down_l2/main", f"{t}.process_l2.1.main", 2, True)
+    if cfg.dataset == "NYU":  # the reference's NYU decoder names
+        p1, p2, u1, u2, head = ("process_1_4", "process_1_8", "up_1_16_1_8",
+                                "up_1_8_1_4", "ssc_head_1_4")
+    else:
+        p1, p2, u1, u2, head = ("process_l1", "process_l2", "up_13_l2",
+                                "up_12_l1", "ssc_head")
+    _process(out, f"{f}/process_l1", f"{t}.{p1}.0", 3)
+    _bottleneck3d(out, f"{f}/down_l1/main", f"{t}.{p1}.1.main", 2, True)
+    _process(out, f"{f}/process_l2", f"{t}.{p2}.0", 3)
+    _bottleneck3d(out, f"{f}/down_l2/main", f"{t}.{p2}.1.main", 2, True)
     if cfg.context_prior:
         fc, tc = f"{f}/cp_mega_voxels", f"{t}.CP_mega_voxels"
         _aspp(out, f"{fc}/aspp", f"{tc}.aspp")
@@ -126,12 +132,17 @@ def _unet3d(out, cfg):
                         f"{fc}/context_prior_logits_{r}", "conv3d", True))
         out.append((f"{tc}.resize.0", f"{fc}/resize_conv", "conv3d", False))
         _process(out, f"{fc}/resize_process", f"{tc}.resize.1", 1)
-    # up_l1_lfull is an Upsample at project_scale 2 and a Convblock3d at 1:
-    # the same keys, a transposed conv either way
-    for name in ("up_13_l2", "up_12_l1", "up_l1_lfull"):
-        out.append((f"{t}.{name}.main.0", f"{f}/{name}/conv", "convT3d", True))
-        out.append((f"{t}.{name}.main.1", f"{f}/{name}/bn", "bn", True))
-    _seg_head(out, f"{f}/ssc_head", f"{t}.ssc_head", cfg.cascade_cls, False)
+    # up_l1_lfull (KITTI and TartanAir only) is an Upsample at
+    # project_scale 2 and a Convblock3d at 1: the same keys, a transposed
+    # conv either way
+    ups = [("up_13_l2", u1), ("up_12_l1", u2)]
+    if cfg.dataset != "NYU":
+        ups.append(("up_l1_lfull", "up_l1_lfull"))
+    for fname, tname in ups:
+        out.append((f"{t}.{tname}.main.0", f"{f}/{fname}/conv", "convT3d",
+                    True))
+        out.append((f"{t}.{tname}.main.1", f"{f}/{fname}/bn", "bn", True))
+    _seg_head(out, f"{f}/ssc_head", f"{t}.{head}", cfg.cascade_cls, False)
     if cfg.occluded_cls:
         _seg_head(out, f"{f}/occluded_head", f"{t}.occluded_head", False,
                   True)

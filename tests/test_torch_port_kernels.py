@@ -26,7 +26,9 @@ from occdepth_tpu_torch.ops.crp_matmul import (
     crp_relation_matmul_reference,
 )
 from occdepth_tpu_torch.ops.crp_matmul import (
+    pad_logits,
     pad_mega,
+    tma_reads_logits,
     tma_reads_mega,
     wgmma_path,
 )
@@ -134,6 +136,27 @@ def test_pad_mega_gives_tma_strides_and_zero_rows(B, M, C):
     logits = torch.empty(B, 4, M, 10800, dtype=torch.bfloat16)
     assert wgmma_path(logits.transpose(2, 3), mega)
     assert not wgmma_path(logits.float().transpose(2, 3), mega.float())
+
+
+@pytest.mark.parametrize("B,N,M", [(1, 2025, 196), (2, 100, 37),
+                                   (1, 4096, 512)],
+                         ids=["nyu", "ragged", "aligned"])
+def test_pad_logits_gives_tma_strides(B, N, M):
+    """K2's logits in the CRP's layout (a transposed view of the (B, R, M,
+    N) conv outputs) as the wgmma kernel's TMA reads them: the same
+    values, strides (R * M * Np, M * Np, 1, Np) with Np = N rounded up to
+    8.  At NYU's N = 2,025 voxels the view itself has a 4,050-byte stride,
+    which TMA cannot read; it takes wgmma all the same."""
+    R = 4
+    g = torch.Generator().manual_seed(4)
+    logits = torch.randn(B, R, M, N, generator=g).bfloat16().transpose(2, 3)
+    assert tma_reads_logits(logits) == (N % 8 == 0)
+    assert wgmma_path(logits, torch.empty(B, M, 8, dtype=torch.bfloat16))
+    out = pad_logits(logits)
+    Np = -(-N // 8) * 8
+    assert out.shape == (B, R, N, M) and out.dtype == torch.bfloat16
+    assert out.stride() == (R * M * Np, M * Np, 1, Np)
+    assert tma_reads_logits(out) and torch.equal(out, logits)
 
 
 @pytest.fixture
@@ -717,16 +740,16 @@ def test_crp_matmul_relations_kernel_matches_plain(cuda_device, dtype,
     ((B, R, M, N) logits and (B, C, M) mega read transposed), one launch:
     within 2e-5 * max|ref| (fp32 sums of M terms in another order; in bf16
     the split sigmoid's 2^-18 per term).  bf16 takes the wgmma kernel
-    wherever TMA can read the logits' strides (N a multiple of 8; mega is
-    padded where M is not): a partial voxel tile and C < 256, two channel
-    tiles with M not a multiple of 64; N = 100 takes the SIMT kernel."""
+    (the logits padded where N is not a multiple of 8, mega where M is
+    not): a partial voxel tile and C < 256, two channel tiles with M not a
+    multiple of 64, N = 100 on padded logits."""
     B, R, N, M, C = shape
     g = torch.Generator(device=cuda_device).manual_seed(11)
     logits = torch.randn(B, R, M, N, device=cuda_device,
                          generator=g).to(dtype)
     mega = torch.randn(B, C, M, device=cuda_device, generator=g).to(dtype)
     args = (logits.transpose(2, 3), mega.transpose(1, 2))
-    assert wgmma_path(*args) == (dtype == torch.bfloat16 and N % 8 == 0)
+    assert wgmma_path(*args) == (dtype == torch.bfloat16)
     before = crp_relation_matmul.launches
     out = crp_relation_matmul(*args)
     torch.cuda.synchronize()
@@ -760,6 +783,32 @@ def test_crp_matmul_tartanair_shape_takes_wgmma(cuda_device, B, M):
     assert (out - ref).abs().max().item() <= 2e-5 * ref.abs().max().item()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,C", [(1, 800), (2, 800), (1, 1600)])
+def test_crp_matmul_nyu_shape_takes_wgmma(cuda_device, B, C, dtype):
+    """K2 at NYU's CRP shape, (B, 4, 2,025, 196) @ (B, 196, C) in the
+    model's layout, C = 800 (b4) and 1,600 (b7): neither operand's stride
+    is a 16-byte multiple, so bf16 takes the wgmma kernel on padded copies
+    of both, and C = 800 = 3 x 256 + 32 ends in a partial column tile (on
+    the SIMT kernel too, fp32); one launch, within 2e-5 * max|ref| of the
+    plain version."""
+    g = torch.Generator(device=cuda_device).manual_seed(13)
+    R, N, M = 4, 2025, 196
+    logits = torch.randn(B, R, M, N, device=cuda_device, generator=g).to(dtype)
+    mega = torch.randn(B, C, M, device=cuda_device, generator=g).to(dtype)
+    args = (logits.transpose(2, 3), mega.transpose(1, 2))
+    assert wgmma_path(*args) == (dtype == torch.bfloat16)
+    assert not tma_reads_logits(args[0]) and not tma_reads_mega(args[1])
+    before = crp_relation_matmul.launches
+    out = crp_relation_matmul(*args)
+    torch.cuda.synchronize()
+    assert crp_relation_matmul.launches == before + 1
+    assert out.shape == (B, R, N, C) and out.dtype == torch.float32
+    ref = crp_relation_matmul_reference(*args)
+    assert (out - ref).abs().max().item() <= 2e-5 * ref.abs().max().item()
+
+
 def _lift_case(dev, dtype, layout, B, N, P, C, hw, seed):
     """`lift_inputs` on the card: maps in `dtype` and `layout`."""
     scales = (1, 2, 4, 8)
@@ -778,14 +827,19 @@ def _lift_case(dev, dtype, layout, B, N, P, C, hw, seed):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", [(2, 20000, 1, 32, (93, 305)),
                                   (1, 3001, 4, 24, (37, 61)),
-                                  (2, 777, 3, 20, (21, 37))],
-                         ids=["serve_like", "p4_c24", "p3_c20"])
+                                  (2, 777, 3, 20, (21, 37)),
+                                  (2, 5000, 1, 100, (60, 80)),
+                                  (1, 5000, 1, 200, (60, 80))],
+                         ids=["serve_like", "p4_c24", "p3_c20", "nyu_c100",
+                              "nyu_c200"])
 def test_flosp_stereo_lift_kernel_matches_plain(cuda_device, dtype, layout,
                                                case):
     """The fused lift vs its plain version (flosp_gather_flat, the plain
     fusion, the sum over scales) in one launch: fp32 row sums and scale
     sums in another order, 1e-5 absolute (as K1).  C = 32 and 24 move 16
-    bytes a thread; C = 20 in bf16 (40-byte rows) one element a thread.
+    bytes a thread; C = 20 in bf16 (40-byte rows) one element a thread, as
+    NYU's b4 C = 100 in bf16 (200-byte rows, four elements a lane of 32);
+    its b7 C = 200 moves 16 bytes a thread.
     Points on every map's last row and column, out of FOV, and voxels
     seen by one view only (`lift_inputs`)."""
     B, N, P, C, hw = case

@@ -9,7 +9,6 @@ against the JAX model on one seeded weight set (port -> `convert_state_dict`
 JAX dataset on the JAX toy tree; the pose helpers; and the train and eval
 CLIs on the CPU with JAX blocked.
 """
-import dataclasses
 import json
 import os
 import pickle
@@ -443,13 +442,3 @@ def test_eval_cli_prints_tartanair_classes(cli_run):
 def test_clis_import_no_jax(cli_run):
     assert cli_run[0]["jax_side"] == []
 
-
-def test_nyu_still_raises():
-    """NYU is the next slice: its model and dataset still refuse."""
-    from occdepth_tpu_torch.training.trainer import make_datasets
-
-    cfg = dataclasses.replace(tiny_tartanair_config(), dataset="NYU")
-    with pytest.raises(NotImplementedError):
-        OccDepthModel(cfg)
-    with pytest.raises(NotImplementedError):
-        make_datasets(cfg)
