@@ -137,7 +137,7 @@ Phases, one line each:
      (1, 196, 800) and b7's 1,600 channels, bf16 on the wgmma kernel with
      the logits and mega padded (neither stride is a 16-byte multiple)
      beside the SIMT kernel and sigmoid + matmul, fp32 on SIMT; K4 at the
-     b4 encoder's stride-1 depthwise convs on 480x640; K3 at the b4
+     b4 and the b7 encoder's stride-1 depthwise convs on 480x640; K3 at the b4
      decoder's ten 3x3 convs, bf16 and fp32 with cuDNN's beside; each vs
      its plain version, with device times (CUDA-graph replays) and bounds;
  21. NYU training: the shipped b4 config (feature 100, 60x36x60, 12
@@ -147,7 +147,8 @@ Phases, one line each:
      copies; the lift and K2 once per step and per validation forward);
      the train CLI for 2 steps and its resume; then the b7 config
      (feature 200) at full width: two train steps (the first pays
-     one-time costs) and one eval forward, losses finite, ms and peak
+     one-time costs) and one eval forward, losses finite, K4 once per
+     stride-1 depthwise conv of b7 per step with no copies, ms and peak
      memory;
  22. NYU evaluation of the tree's 2 test frames at batch 2 (sample 0's
      disparity warps both) from a reference-schema .ckpt: fp32 (TF32 off)
@@ -1438,8 +1439,7 @@ def k2_at_shape(dev, N, M, C, padded, tag, seed) -> dict:
     from occdepth_tpu_torch.ops.crp_matmul import (
         crp_relation_matmul,
         crp_relation_matmul_reference,
-        tma_reads_logits,
-        tma_reads_mega,
+        tma_reads,
         wgmma_path,
     )
 
@@ -1454,8 +1454,8 @@ def k2_at_shape(dev, N, M, C, padded, tag, seed) -> dict:
         path = "wgmma" if wgmma_path(*args) else "simt"
         check(path == ("wgmma" if dtype == torch.bfloat16 else "simt"),
               f"{tag} {name} took the {path} kernel")
-        pads = {"logits": not tma_reads_logits(args[0]),
-                "mega": not tma_reads_mega(args[1])}
+        pads = {"logits": not tma_reads(args[0], 2),
+                "mega": not tma_reads(args[1], 1)}
         check({k for k, v in pads.items() if v} == set(padded),
               f"{tag}: padded copies {pads}, expected {padded}")
         ref = crp_relation_matmul_reference(*args)
@@ -1784,8 +1784,9 @@ def phase_nyu_kernels(dev, sample) -> dict:
     fp32, NCHW and channels-last; K2 at the 15x9x15 bottleneck, (1, 4,
     2,025, 196) @ (1, 196, 800) and b7's C = 1,600, bf16 on wgmma (logits
     and mega padded) beside the SIMT kernel and sigmoid + matmul, fp32 on
-    SIMT; K4 at the b4 encoder's stride-1 depthwise convs on a 480x640
-    image; K3 at the b4 decoder's ten 3x3 convs (100 channels out)."""
+    SIMT; K4 at the b4 and the b7 encoder's stride-1 depthwise convs on a
+    480x640 image; K3 at the b4 decoder's ten 3x3 convs (100 channels
+    out)."""
     import torch
 
     N = math.prod(NYU_GRID)
@@ -1806,8 +1807,10 @@ def phase_nyu_kernels(dev, sample) -> dict:
                             "nyu_k2", seed=22)
     res["k2_b7"] = k2_at_shape(dev, n_crp, m_crp, 1600, ("logits", "mega"),
                                "nyu_k2_b7", seed=23)
-    shapes = flagship_dw_shapes(dev, NYU_HW, "tf_efficientnet_b4_ns")
-    res["k4"] = k4_at_shapes(dev, shapes, "nyu_k4", seed=24)
+    for key, backbone, seed in (("k4", "tf_efficientnet_b4_ns", 24),
+                                ("k4_b7", "tf_efficientnet_b7_ns", 26)):
+        shapes = flagship_dw_shapes(dev, NYU_HW, backbone)
+        res[key] = k4_at_shapes(dev, shapes, f"nyu_{key}", seed=seed)
     shapes = flagship_k3_shapes(dev, NYU_HW, "tf_efficientnet_b4_ns", 100)
     check(len(shapes) == 10, f"{len(shapes)} b4 decoder 3x3 convs")
     g3 = torch.Generator(device=dev).manual_seed(25)
@@ -1818,16 +1821,19 @@ def phase_nyu_kernels(dev, sample) -> dict:
     return res
 
 
-def phase_nyu_train(dev, smi: str, base: str, n_dw: int) -> dict:
+def phase_nyu_train(dev, smi: str, base: str, n_dw: int,
+                    n_dw7: int) -> dict:
     """21. NYU training: the shipped b4 config (feature 100, 480x640
     RGB-D, 60x36x60, 12 classes) in bf16 with dw_conv_grad=pallas on the
     full-size tree fits 3 steps at batch 1 and validates on the test split
     at each epoch end; the train CLI for 2 steps, and again to resume;
     then the b7 config (feature 200) at full width: two train steps and
-    one eval forward."""
+    one eval forward, K4 once per stride-1 depthwise conv of b7 (n_dw7, as
+    phase 20 held them) per step with no copies."""
     import torch
 
     from occdepth_tpu_torch.config import default_config_path, load_config
+    from occdepth_tpu_torch.ops.dw_conv import dw_filter_grad
     from occdepth_tpu_torch.training import Trainer
     from occdepth_tpu_torch.training.step import eval_step, train_step
     from occdepth_tpu_torch.training.trainer import make_datasets
@@ -1862,14 +1868,17 @@ def phase_nyu_train(dev, smi: str, base: str, n_dw: int) -> dict:
     cfg7 = load_config(default_config_path(NYU_B7), overrides=nyu_overrides(
         base, "b7", compute_dtype="bfloat16", dw_conv_grad="pallas"))
     trainer = Trainer(cfg7)
-    n_dw7 = sum(1 for m in trainer.model.modules()
-                if getattr(m, "fast_grad", False))
+    n_fast = sum(1 for m in trainer.model.modules()
+                 if getattr(m, "fast_grad", False))
+    check(n_fast == n_dw7, f"NYU b7: {n_fast} K4 convs in the model, "
+          f"{n_dw7} held in phase 20")
     batches = [trainer._to_device({
         k: np.asarray(v)[None] for k, v in ds[0].items()
         if k not in ("frame_id", "sequence")}) for ds in (train_ds, val_ds)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
+    dw_filter_grad.copies = 0
     step_ms, logs = [], {}
     for _ in range(2):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -1884,11 +1893,11 @@ def phase_nyu_train(dev, smi: str, base: str, n_dw: int) -> dict:
     vlogs, _, _ = eval_step(cfg7, trainer.model, batches[1])
     ev[1].record()
     torch.cuda.synchronize()
-    n = read_counts()
-    b7 = {"launches": n, "train_ms": step_ms,
+    n, copies = read_counts(), dw_filter_grad.copies
+    b7 = {"launches": n, "train_ms": step_ms, "k4_copies": copies,
           "eval_ms": ev[0].elapsed_time(ev[1]),
           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
-    log("nyu_b7", gpu=repr(smi), dw_convs=n_dw7,
+    log("nyu_b7", gpu=repr(smi), dw_convs=n_dw7, k4_copies=copies,
         train_step_ms=",".join(f"{t:.1f}" for t in step_ms),
         eval_forward_ms=f"{b7['eval_ms']:.1f}",
         peak_mem_gib=f"{b7['peak_gib']:.3f}",
@@ -1900,6 +1909,7 @@ def phase_nyu_train(dev, smi: str, base: str, n_dw: int) -> dict:
           "NYU b7: a loss term is not finite")
     check(n["dw_filter_grad"] == 2 * n_dw7 and n_dw7 > n_dw,
           f"NYU b7: K4 launches {n['dw_filter_grad']} for {n_dw7} convs")
+    check(copies == 0, f"NYU b7: K4 copied {copies} operands to NCHW")
     check(n["flosp_stereo_lift"] == n["crp_relation_matmul"] == 3
           and n["stereo_cosine_fuse"] == n["conv3x3"] == 0,
           f"NYU b7: launches {n} (lift and K2 once per forward)")
@@ -2142,7 +2152,8 @@ def main() -> None:
                               overrides=nyu_overrides(nyu_base, "data"))
         nyu = phase_nyu_kernels(dev, NYUDataset(nyu_cfg, "test")[0])
         nyu_train = phase_nyu_train(dev, smi, nyu_base,
-                                    nyu["k4"]["n_convs"])
+                                    nyu["k4"]["n_convs"],
+                                    nyu["k4_b7"]["n_convs"])
         nyu_eval = phase_nyu_eval(dev, smi, nyu_base)
     finally:
         shutil.rmtree(nyu_base, ignore_errors=True)
@@ -2230,10 +2241,11 @@ def main() -> None:
                            n_convs=ta["k4"]["n_convs"],
                            shape="the b3 encoder's stride-1 dw convs on a "
                                  "480x640 image, bf16, batch 1"),
-         "nyu": dict(at_ta(nyu["k4"]), library_ms=nyu["k4"]["library_ms"],
-                     n_convs=nyu["k4"]["n_convs"],
-                     shape="the b4 encoder's stride-1 dw convs on a 480x640 "
-                           "image, bf16, batch 1"),
+         "nyu": {name: dict(at_ta(r), library_ms=r["library_ms"],
+                            n_convs=r["n_convs"],
+                            shape=f"the {name} encoder's stride-1 dw convs on "
+                                  "a 480x640 image, bf16, batch 1")
+                 for name, r in (("b4", nyu["k4"]), ("b7", nyu["k4_b7"]))},
          "timed": f"sum over the {k4['n_convs']} stride-1 depthwise convs "
                   "of one flagship view, bf16, batch 1"},
         {"name": "conv3x3", "route": "cuda",

@@ -8,9 +8,9 @@ launches the kernel or raises.  bf16 operands with the logits in the
 model's layout (voxel-contiguous) take the wgmma kernel, whose sigmoid is
 split into two bf16 terms (`split_bf16`).  Each operand goes to it as is
 where TMA can read it (its contiguous dim unit-stride, the other strides
-multiples of 16 bytes, 16-byte aligned), else as a padded copy:
-`pad_logits` for NYU's N = 2,025 voxels (a 4,050-byte stride), `pad_mega`
-for TartanAir's M = 1,350 mega-voxels (a 2,700-byte stride).  fp32
+multiples of 16 bytes, 16-byte aligned), else as `pad_for_tma`'s copy:
+the logits for NYU's N = 2,025 voxels (a 4,050-byte stride), mega for
+TartanAir's M = 1,350 mega-voxels (a 2,700-byte stride).  fp32
 operands and other logits layouts take the SIMT kernel.  On
 CUDA with gradients enabled the kernel is the forward of an autograd
 Function whose backward is the plain version's gradient as two matmuls
@@ -104,54 +104,36 @@ def _sane_strides(t: torch.Tensor) -> list:
 def wgmma_path(p_logit: torch.Tensor, mega: torch.Tensor) -> bool:
     """Whether (B, R, N, M) logits and (B, M, C) mega take the wgmma kernel:
     bf16, logits voxel-contiguous.  Other strides of either operand that
-    TMA cannot read are made readable by a padded copy (`pad_logits`,
-    `pad_mega`)."""
+    TMA cannot read are made readable by a padded copy (`pad_for_tma`)."""
     if p_logit.dtype != torch.bfloat16 or mega.dtype != torch.bfloat16:
         return False
     return _sane_strides(p_logit)[2] == 1
 
 
-def tma_reads_logits(p_logit: torch.Tensor) -> bool:
-    """Whether the wgmma kernel's TMA reads (B, R, N, M) bf16 logits as
-    they are: voxel-contiguous, the other strides multiples of 16 bytes,
-    16-byte aligned."""
-    ps = _sane_strides(p_logit)
-    return (ps[2] == 1 and all(s % 8 == 0 for s in (ps[0], ps[1], ps[3]))
-            and p_logit.data_ptr() % 16 == 0)
+def tma_reads(t: torch.Tensor, dim: int) -> bool:
+    """Whether the wgmma kernel's TMA reads bf16 operand t as it is: `dim`
+    contiguous (unit stride), the other strides multiples of 16 bytes, the
+    base 16-byte aligned.  `dim` is 2 for (B, R, N, M) logits, 1 for (B, M,
+    C) mega."""
+    st = _sane_strides(t)
+    return (st[dim] == 1 and all(s % 8 == 0 for i, s in enumerate(st)
+                                 if i != dim)
+            and t.data_ptr() % 16 == 0)
 
 
-def pad_logits(p_logit: torch.Tensor) -> torch.Tensor:
-    """(B, R, N, M) logits as the wgmma kernel's TMA reads them: a (B, R,
-    N, M) view of a new (B, R, M, Np) buffer, Np = N rounded up to a
-    multiple of 8.  Strides (R * M * Np, M * Np, 1, Np): 16-byte multiples
-    in bf16.  The kernel reads only the view (TMA zero-fills its last
-    voxel tile past N), so the padding columns stay unwritten."""
-    B, R, N, M = p_logit.shape
-    buf = p_logit.new_empty(B, R, M, -(-N // 8) * 8)
-    buf[..., :N] = p_logit.transpose(2, 3)
-    return buf[..., :N].transpose(2, 3)
-
-
-def tma_reads_mega(mega: torch.Tensor) -> bool:
-    """Whether the wgmma kernel's TMA reads (B, M, C) bf16 mega as it is:
-    mega-voxel-contiguous, the other strides multiples of 16 bytes,
-    16-byte aligned."""
-    gs = _sane_strides(mega)
-    return (gs[1] == 1 and gs[0] % 8 == 0 and gs[2] % 8 == 0
-            and mega.data_ptr() % 16 == 0)
-
-
-def pad_mega(mega: torch.Tensor) -> torch.Tensor:
-    """(B, M, C) mega as the wgmma kernel's TMA reads it: a (B, M, C) view
-    of a new (B, C, Mp) buffer, Mp = M rounded up to a multiple of 8, rows
-    M..Mp-1 zero.  Strides (C * Mp, 1, Mp): 16-byte multiples in bf16.
-    The kernel reads only the view; its last chunk's mega-voxels past M
-    come from TMA's zero fill, and sigmoid(logit) times a zero row adds
-    nothing to the product."""
-    B, M, C = mega.shape
-    buf = mega.new_zeros(B, C, -(-M // 8) * 8)
-    buf[:, :, :M] = mega.transpose(1, 2)
-    return buf[:, :, :M].transpose(1, 2)
+def pad_for_tma(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """t as the wgmma kernel's TMA reads it: a view of t's shape on a new
+    zeroed buffer laid out with `dim` last and padded to a multiple of 8,
+    so `dim` is unit-stride and every other stride a 16-byte multiple in
+    bf16.  For NYU's logits (B, R, N = 2,025, M) that is a (B, R, M, 2,032)
+    buffer; for TartanAir's mega (B, M = 1,350, C) a (B, C, 1,352) one.
+    The kernel reads only the view: TMA zero-fills its last tile past the
+    view's extent, and the padding stays zero."""
+    moved = t.movedim(dim, -1)
+    n = moved.shape[-1]
+    buf = t.new_zeros(*moved.shape[:-1], -(-n // 8) * 8)
+    buf[..., :n] = moved
+    return buf[..., :n].movedim(-1, dim)
 
 
 def _launch(p_logit, mega):
@@ -180,10 +162,10 @@ def _launch(p_logit, mega):
     out = torch.empty((B, R, C, N), dtype=torch.float32,
                       device=p4.device).transpose(2, 3)
     path = int(wgmma_path(p4, g3))
-    if path and not tma_reads_logits(p4):
-        p4 = pad_logits(p4)
-    if path and not tma_reads_mega(g3):
-        g3 = pad_mega(g3)
+    if path and not tma_reads(p4, 2):
+        p4 = pad_for_tma(p4, 2)
+    if path and not tma_reads(g3, 1):
+        g3 = pad_for_tma(g3, 1)
     ps, gs = _sane_strides(p4), _sane_strides(g3)
     rc = cuda_lib.library().occ_crp_relation_matmul(
         p4.data_ptr(), g3.data_ptr(), out.data_ptr(),

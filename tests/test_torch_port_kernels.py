@@ -26,10 +26,8 @@ from occdepth_tpu_torch.ops.crp_matmul import (
     crp_relation_matmul_reference,
 )
 from occdepth_tpu_torch.ops.crp_matmul import (
-    pad_logits,
-    pad_mega,
-    tma_reads_logits,
-    tma_reads_mega,
+    pad_for_tma,
+    tma_reads,
     wgmma_path,
 )
 from occdepth_tpu_torch.ops.dw_conv import (
@@ -125,11 +123,11 @@ def test_pad_mega_gives_tma_strides_and_zero_rows(B, M, C):
     stride, which TMA cannot read; the logits' layout still takes wgmma."""
     g = torch.Generator().manual_seed(3)
     mega = torch.randn(B, C, M, generator=g).bfloat16().transpose(1, 2)
-    assert tma_reads_mega(mega) == (M % 8 == 0)
-    out = pad_mega(mega)
+    assert tma_reads(mega, 1) == (M % 8 == 0)
+    out = pad_for_tma(mega, 1)
     Mp = -(-M // 8) * 8
     assert out.shape == (B, M, C) and out.dtype == torch.bfloat16
-    assert out.stride() == (C * Mp, 1, Mp) and tma_reads_mega(out)
+    assert out.stride() == (C * Mp, 1, Mp) and tma_reads(out, 1)
     assert torch.equal(out, mega)
     buf = out.as_strided((B, C, Mp), (C * Mp, Mp, 1))
     assert not buf[:, :, M:].any()
@@ -145,18 +143,21 @@ def test_pad_logits_gives_tma_strides(B, N, M):
     """K2's logits in the CRP's layout (a transposed view of the (B, R, M,
     N) conv outputs) as the wgmma kernel's TMA reads them: the same
     values, strides (R * M * Np, M * Np, 1, Np) with Np = N rounded up to
-    8.  At NYU's N = 2,025 voxels the view itself has a 4,050-byte stride,
-    which TMA cannot read; it takes wgmma all the same."""
+    8, the columns past N zero.  At NYU's N = 2,025 voxels the view itself
+    has a 4,050-byte stride, which TMA cannot read; it takes wgmma all the
+    same."""
     R = 4
     g = torch.Generator().manual_seed(4)
     logits = torch.randn(B, R, M, N, generator=g).bfloat16().transpose(2, 3)
-    assert tma_reads_logits(logits) == (N % 8 == 0)
+    assert tma_reads(logits, 2) == (N % 8 == 0)
     assert wgmma_path(logits, torch.empty(B, M, 8, dtype=torch.bfloat16))
-    out = pad_logits(logits)
+    out = pad_for_tma(logits, 2)
     Np = -(-N // 8) * 8
     assert out.shape == (B, R, N, M) and out.dtype == torch.bfloat16
     assert out.stride() == (R * M * Np, M * Np, 1, Np)
-    assert tma_reads_logits(out) and torch.equal(out, logits)
+    assert tma_reads(out, 2) and torch.equal(out, logits)
+    buf = out.as_strided((B, R, M, Np), (R * M * Np, M * Np, Np, 1))
+    assert not buf[..., N:].any()
 
 
 @pytest.fixture
@@ -773,7 +774,7 @@ def test_crp_matmul_tartanair_shape_takes_wgmma(cuda_device, B, M):
                          generator=g).bfloat16()
     mega = torch.randn(B, C, M, device=cuda_device, generator=g).bfloat16()
     args = (logits.transpose(2, 3), mega.transpose(1, 2))
-    assert wgmma_path(*args) and not tma_reads_mega(args[1])
+    assert wgmma_path(*args) and not tma_reads(args[1], 1)
     before = crp_relation_matmul.launches
     out = crp_relation_matmul(*args)
     torch.cuda.synchronize()
@@ -799,7 +800,7 @@ def test_crp_matmul_nyu_shape_takes_wgmma(cuda_device, B, C, dtype):
     mega = torch.randn(B, C, M, device=cuda_device, generator=g).to(dtype)
     args = (logits.transpose(2, 3), mega.transpose(1, 2))
     assert wgmma_path(*args) == (dtype == torch.bfloat16)
-    assert not tma_reads_logits(args[0]) and not tma_reads_mega(args[1])
+    assert not tma_reads(args[0], 2) and not tma_reads(args[1], 1)
     before = crp_relation_matmul.launches
     out = crp_relation_matmul(*args)
     torch.cuda.synchronize()

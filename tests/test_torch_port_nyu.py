@@ -89,14 +89,20 @@ LOGIT_ATOL = 3e-3  # the serving slice's bound (test_torch_port_slice.py)
 LOSS_RTOL = 1e-4  # the train step's bound (test_torch_port_train_step.py)
 FP_LOSS_RTOL = 1e-5  # one KL over per-frustum sums of ~1k softmax rows
 # Train-mode losses and gradients at the tiny size go through BatchNorm
-# over a handful of elements (the 3D bottleneck is 4x2x4 voxels), so they
-# are ill-conditioned in fp32: a term or a gradient must agree within its
+# over a handful of elements (the 2D encoder's last stages see 2x3 pixels
+# of 2 images, the 3D bottleneck 4x2x4 voxels), so they are
+# ill-conditioned in fp32: a term or a gradient must agree within its
 # fixed bound, or where the port's own change under a (1 + 1e-7 N(0, 1))
 # weight perturbation exceeds it, within NOISE_MULT times that change
 # (test_torch_port_train_step.py's rule).
 NOISE_MULT, N_PERTURB = 4.0, 3
 GRAD_RTOL = 1e-3  # x the leaf's L2 norm, where the noise is smaller
 ORACLE_MULT = 2.0  # x the oracle's own float32 - float64 gradient distance
+# With BN on its running statistics the network is well conditioned: the
+# port's fp32 gradients sit within 1.5e-5 of the float64 oracle's norm at
+# worst (median 6e-7) over the 604 leaves, so each leaf is held to this
+# fixed bound alone, with no noise branch.
+RUNNING_GRAD_RTOL = 1e-4  # x the leaf's L2 norm
 # the tiny config's OAD branch: world (X, Y, Z_up) = (16, 16, 8) at 0.3 m
 TINY_FD_NYU = dict(x_bound=(0.0, 4.8, 0.3), y_bound=(-2.4, 2.4, 0.3),
                    z_bound=(0.0, 2.4, 0.3), d_bound=(0.5, 8.0, 0.25),
@@ -319,12 +325,12 @@ def test_nyu_train_losses_match_jax(model_outputs):
         assert abs(ours[k] - v) <= tol, (k, ours[k], v, noise)
 
 
-def _oracle_grads(cfg, batch, cots, double):
-    """TorchOccDepthNYU (train mode, seeded BN statistics) in float64 or
-    float32: its float32 state_dict and the gradients of sum(out * cot)
-    per parameter."""
+def _oracle_grads(cfg, batch, cots, double, train):
+    """TorchOccDepthNYU (BN on batch statistics if `train`, else on its
+    seeded running statistics) in float64 or float32: its float32
+    state_dict and the gradients of sum(out * cot) per parameter."""
     torch.manual_seed(23)
-    oracle = TorchOccDepthNYU(cfg).train()
+    oracle = TorchOccDepthNYU(cfg).train(train)
     randomize_bn(oracle, seed=23)
     sd = {k: v.clone() for k, v in oracle.state_dict().items()}
     dt = torch.float64 if double else torch.float32
@@ -346,8 +352,9 @@ def _oracle_grads(cfg, batch, cots, double):
                 if p.grad is not None}
 
 
-def _port_grads(model, batch, cots):
-    out = model.train()({k: torch.from_numpy(v) for k, v in batch.items()})
+def _port_grads(model, batch, cots, train):
+    out = model.train(train)({k: torch.from_numpy(v)
+                              for k, v in batch.items()})
     loss = sum((out[k] if k == "P_logits" else
                 out[k].permute(0, 4, 1, 2, 3)).mul(torch.from_numpy(c)).sum()
                for k, c in cots.items())
@@ -357,18 +364,30 @@ def _port_grads(model, batch, cots):
     return {n: g for n, g in zip(params, grads) if g is not None}
 
 
-def test_gradients_match_torch_oracle():
+@pytest.mark.parametrize("bn_stats", ["running", "batch"])
+def test_gradients_match_torch_oracle(bn_stats):
     """A TorchOccDepthNYU state_dict loads into the port directly, and the
-    port's fp32 train-mode gradients of a random cotangent on ssc_logit,
-    occ_logit and P_logits at batch 2 (gradients flow through the virtual
-    view into the backbone; sample 0's disparity warps both samples)
-    match the oracle's float64 gradients: within GRAD_RTOL of each leaf's
-    norm, or NOISE_MULT times the port's own change under a 1e-7 weight
-    perturbation (the port casts to float32 in BN, the lift and the warp,
-    so it cannot run in float64 itself).  The output heads' weights, next
-    to the cotangent, are also no further from float64 than ORACLE_MULT
-    times the oracle's own float32 gradients are (~1e-3 of their norm:
-    the heads read features that went through the whole network)."""
+    port's fp32 gradients of a random cotangent on ssc_logit, occ_logit
+    and P_logits at batch 2 (gradients flow through the virtual view into
+    the backbone; sample 0's disparity warps both samples) match the
+    oracle's float64 gradients.  The port casts to float32 in BN, the lift
+    and the warp, so it cannot run in float64 itself.
+
+    `running`: BN on the seeded running statistics.  Every leaf within
+    RUNNING_GRAD_RTOL of its norm, with no noise branch: this is the case
+    that holds the backward through the virtual view's sample, the (X, Z,
+    Y) transpose and UNet3DNYU.
+
+    `batch`: BN on batch statistics (the train step's mode).  At the tiny
+    size this is chaotic in fp32: a 1e-7 weight perturbation moves the
+    outputs by ~6e-4 and the gradients by ~10% of their norm, so a leaf
+    passes within GRAD_RTOL of its norm or NOISE_MULT times the port's
+    own change under such a perturbation, and the leaves that need the
+    noise branch are counted and printed with their ratios.  The output
+    heads' weights, next to the cotangent, are also no further from
+    float64 than ORACLE_MULT times the oracle's own float32 gradients are
+    (~1e-3 of their norm)."""
+    train = bn_stats == "batch"
     cfg = tiny_nyu_config()
     batch = make_synthetic_batch(cfg, batch_size=2, seed=21, with_labels=True)
     rs = np.random.RandomState(7)
@@ -376,16 +395,31 @@ def test_gradients_match_torch_oracle():
     cots = {"ssc_logit": rs.randn(2, 12, X, Y, Z).astype(np.float32),
             "occ_logit": rs.randn(2, 2, X, Y, Z).astype(np.float32),
             "P_logits": rs.randn(2, 4, 4, 32).astype(np.float32)}
-    sd, ref = _oracle_grads(cfg, batch, cots, double=True)
-    _, ref32 = _oracle_grads(cfg, batch, cots, double=False)
+    sd, ref = _oracle_grads(cfg, batch, cots, double=True, train=train)
     port = OccDepthModel(cfg)
     port.load_state_dict(sd, strict=True)
-    ours = _port_grads(port, batch, cots)
-    perturbed = [_port_grads(perturbed_copy(port, s), batch, cots)
-                 for s in range(N_PERTURB)]
+    ours = _port_grads(port, batch, cots, train)
     assert set(ours) == set(ref) and len(ours) > 400
+    if not train:
+        # the port itself as the only "perturbed" copy: a noise of 0
+        worst = noise_aware_worst(ours, ref, [ours], RUNNING_GRAD_RTOL, 0.0)
+        print(f"running statistics: worst err / tol {worst[0][0]:.3e} "
+              f"({worst[0][1]})")
+        assert worst[0][0] <= 1.0, worst[:5]
+        return
+    perturbed = [_port_grads(perturbed_copy(port, s), batch, cots, train)
+                 for s in range(N_PERTURB)]
     worst = noise_aware_worst(ours, ref, perturbed, GRAD_RTOL, NOISE_MULT)
     assert worst[0][0] <= 1.0, worst[:5]
+    fixed = {n: GRAD_RTOL * float(torch.linalg.vector_norm(ref[n].double()))
+             + 1e-6 for n in ref}
+    noisy = [(err / fixed[name], ratio, name)
+             for ratio, name, err, _ in worst if err > fixed[name]]
+    print(f"batch statistics: {len(noisy)} of {len(ours)} leaves pass only "
+          "on the noise branch; worst err / fixed tol, err / noise tol:")
+    for over, ratio, name in sorted(noisy, reverse=True)[:10]:
+        print(f"  {over:.3e}  {ratio:.3f}  {name}")
+    _, ref32 = _oracle_grads(cfg, batch, cots, double=False, train=train)
     for name in ("net_3d_decoder.ssc_head_1_4.conv_classes.weight",
                  "net_3d_decoder.ssc_head_1_4.occ_classes.weight"):
         err = torch.linalg.vector_norm(ours[name] - ref[name])
