@@ -154,7 +154,33 @@ Phases, one line each:
      disparity warps both) from a reference-schema .ckpt: fp32 (TF32 off)
      under decoder_conv_impl=xla and =pallas (K3 under pallas only,
      confusion counts within CONF_FLIP_FRAC), bf16 ms/frame in turns, and
-     the eval CLI, which must print the 12-class table.
+     the eval CLI, which must print the 12-class table;
+ 23. the shipped KITTI configs no other phase trains, at full width in bf16
+     with dw_conv_grad=pallas: K4 vs its plain version at the b7 encoder's
+     stride-1 depthwise convs on 370x1220 (bench_dwconv's method, with its
+     times, bound and cuDNN's); the fused lift at the highcap configs'
+     C = 64 and K2 at (1, 4, 4,096, 512) @ (1, 512, 512), bf16 and fp32,
+     vs their plain versions; flospdepth (one view, no CRP or cascade),
+     the stereo-depth highcap (b7, feature 64) and the flosp highcap (b7,
+     flosp), each 2 steps at batch 1 with validation: losses finite,
+     parameters moved, K4 once per depthwise conv of each differentiated
+     view (both views under share_2d_backbone_gradient: false) with 0
+     copies, ms/step and peak memory;
+ 24. the output CLIs at full width (the flagship, bf16) on a
+     make_kitti_tree tree whose eleven test sequences link to val sequence
+     08, from a reference-schema .ckpt: infer under decoder_conv_impl=auto
+     and =pallas (rendered if matplotlib imports), generate_output over the
+     val split, generate_kitti_submission over the test split and the
+     port's validator on it, dump_batch --synthetic, each main in-process
+     with its launch counts (the lift and K2 once per frame, K3 ten times
+     under pallas) and its y_pred held to the in-process argmax, wall and
+     device ms/frame; infer once more as a subprocess;
+ 25. generate_output over the NYU b4 test split (the tree of 20-22):
+     cam_pose, vox_origin, y_pred against the in-process argmax;
+ 26. export at full width: the flagship under decoder_conv_impl=pallas
+     exported on the card, saved and loaded; the loaded program launches
+     the lift and K2 once and K3 ten times per forward and matches eager;
+     the export time and the loaded program's and eager's ms/frame.
 Then a JSON line of per-kernel results, the `nvidia-smi` name/power-limit
 line, and as the last line {"ok": true, "device": {...}}.  Any failure
 raises and exits non-zero; there is no CPU fallback.
@@ -447,7 +473,8 @@ def phase_tiny(dev) -> None:
 
 
 def phase_k2(dev) -> dict:
-    """4. K2, the four relations in one call, vs its plain version."""
+    """4. K2, the four relations in one call, vs its plain version; in
+    bf16 also torch.sigmoid + matmul's time (library_ms)."""
     import torch
 
     from occdepth_tpu_torch.ops.crp_matmul import (
@@ -490,6 +517,11 @@ def phase_k2(dev) -> dict:
                               f"version {plain}")
         res[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
                      "bound_ms": b_ms, "bound_by": kind}
+        if dtype == torch.bfloat16:
+            res[name]["library_ms"] = device_ms(
+                lambda: torch.sigmoid(args[0]) @ args[1].unsqueeze(1))
+            log("k2_library", dtype=name, what="torch.sigmoid + matmul",
+                ms=f"{res[name]['library_ms']:.5f}")
         del logits, mega, ref
     return res
 
@@ -750,16 +782,20 @@ def read_counts() -> dict:
 
 
 def fit_and_check(cfg, train_ds, val_ds, logdir, expected, tag,
-                  smi: str, n_dw_expected: int = 22) -> dict:
-    """A Trainer fits TRAIN_STEPS steps at batch 1 on two-sample train_ds,
+                  smi: str, n_dw_expected: int = 22, steps: int = TRAIN_STEPS,
+                  k4_views: int = 1, lift_k2: int = 1) -> dict:
+    """A Trainer fits `steps` steps at batch 1 on two-sample train_ds,
     validating on val_ds at each epoch end (steps 2 and 3), with the launch
     counts set to 0 just before.  Checks: every `expected` loss term
     logged and finite, the parameters with a gradient all changed (all but
-    at most 2 have one), K4 once per stride-1 depthwise conv of view 0 per
-    step with no operand copied, the fused lift and K2 once per step and
-    per validation forward, K1 and K3 never, val/mIoU logged, the
+    at most 2 have one), K4 once per stride-1 depthwise conv of each of
+    `k4_views` views per step (view 0 alone unless the views' backbone
+    passes are all differentiated) with no operand copied, the fused lift
+    and K2 `lift_k2` times per step and per validation forward (0 for one
+    view without CRP), K1 and K3 never, val/mIoU logged, the
     best-by-metric checkpoints kept.  Returns the trainer, its launch
-    counts, ms/step (CUDA events, mean of steps 2-3) and peak memory."""
+    counts, ms/step (CUDA events, mean of the steps after the first) and
+    peak memory."""
     import torch
 
     from occdepth_tpu_torch.ops.dw_conv import dw_filter_grad
@@ -776,7 +812,7 @@ def fit_and_check(cfg, train_ds, val_ds, logdir, expected, tag,
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    trainer.fit(train_ds, val_ds, max_steps=TRAIN_STEPS)
+    trainer.fit(train_ds, val_ds, max_steps=steps)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches, copies = read_counts(), dw_filter_grad.copies
@@ -804,9 +840,8 @@ def fit_and_check(cfg, train_ds, val_ds, logdir, expected, tag,
         best_val_mIoU=trainer.ckpt.best.get("val/mIoU"),
         **{f"{k}_launches": v for k, v in launches.items()},
         **{k.replace("train/", ""): f"{last[k]:.5f}" for k in terms})
-    check(trainer.step == TRAIN_STEPS, f"{tag}: trainer at step "
-                                       f"{trainer.step}")
-    check([r["step"] for r in train_recs] == list(range(1, TRAIN_STEPS + 1)),
+    check(trainer.step == steps, f"{tag}: trainer at step {trainer.step}")
+    check([r["step"] for r in train_recs] == list(range(1, steps + 1)),
           f"{tag}: metrics.jsonl train records "
           f"{[r['step'] for r in train_recs]}")
     check(expected <= set(terms), f"{tag}: loss terms {terms}")
@@ -816,14 +851,14 @@ def fit_and_check(cfg, train_ds, val_ds, logdir, expected, tag,
           f"{tag}: {changed}/{len(trained)} params with a gradient changed")
     check(n_dw == n_dw_expected, f"{tag}: {n_dw} stride-1 depthwise convs "
           f"(expected {n_dw_expected})")
-    check(launches["dw_filter_grad"] == n_dw * TRAIN_STEPS,
+    check(launches["dw_filter_grad"] == n_dw * k4_views * steps,
           f"{tag}: K4 launches {launches['dw_filter_grad']}")
     # the train path hands K4 contiguous NCHW x and g: no copies
     check(copies == 0, f"{tag}: K4 copied {copies} operands to NCHW")
-    # 2 samples at batch 1: epochs end at steps 2 and 3 (max_steps)
-    check(val_steps == [2, TRAIN_STEPS], f"{tag}: val/mIoU records "
-                                         f"{val_steps}")
-    forwards = TRAIN_STEPS + len(val_steps) * len(val_ds)
+    # 2 samples at batch 1: epochs end at step 2 and at max_steps
+    check(val_steps == sorted({2, steps}), f"{tag}: val/mIoU records "
+                                           f"{val_steps}")
+    forwards = (steps + len(val_steps) * len(val_ds)) * lift_k2
     for name in ("flosp_stereo_lift", "crp_relation_matmul"):
         check(launches[name] == forwards,
               f"{tag}: {name} launches {launches[name]} for {forwards} "
@@ -2010,6 +2045,444 @@ def phase_nyu_eval(dev, smi: str, base: str) -> dict:
             "flips": flips, "counted": counted}
 
 
+KITTI_CONFIGS = (  # the shipped KITTI configs of phase 23, with their losses
+    ("semantic_kitti/flospdepth", "flospdepth_train",
+     {"loss", "loss_ssc", "loss_sem_scal", "loss_geo_scal",
+      "loss_frustums"}),
+    (FLAGSHIP + "_highcap", "highcap_train",
+     {"loss", "loss_ssc", "loss_sem_scal", "loss_geo_scal", "loss_frustums",
+      "loss_occ", "loss_depth", "loss_relation_ce_super"}),
+    ("semantic_kitti/multicam_flosp_crp_cascadecls_highcap",
+     "highcap_flosp_train",
+     {"loss", "loss_ssc", "loss_sem_scal", "loss_geo_scal", "loss_frustums",
+      "loss_occ", "loss_relation_ce_super"}),
+)
+CONFIG_STEPS = 2
+HIGHCAP_C = 64  # both highcap configs' feature and feature_2d_oc
+
+
+def phase_kitti_configs(dev, smi: str) -> dict:
+    """23. The shipped KITTI configs no other phase runs, at full width in
+    bf16 with dw_conv_grad=pallas: K4 vs its plain version at the b7
+    encoder's stride-1 depthwise convs on a 370x1220 image (bench_dwconv's
+    method, with its times, bound and cuDNN's); the fused lift at the
+    highcap configs' C = 64 on their rig's 262,144 voxels and K2 at (1, 4,
+    4,096, 512) @ (1, 512, 512), in bf16 and fp32, vs their plain versions
+    (lift_at_shape, k2_at_shape: times, bounds); then flospdepth (one view,
+    no CRP or cascade), the stereo-depth highcap (b7, feature 64) and the
+    flosp highcap (b7, flosp) each fit 2 steps at batch 1 with
+    validation (fit_and_check): losses finite, parameters moved, K4 once
+    per depthwise conv of each differentiated view (both views under
+    share_2d_backbone_gradient: false) with 0 copies, ms/step and peak
+    memory."""
+    import torch
+
+    from occdepth_tpu_torch.config import default_config_path, load_config
+    from occdepth_tpu_torch.testing import synthetic_dataset
+
+    from occdepth_tpu_torch.data.batch import make_synthetic_batch
+
+    b7_shapes = flagship_dw_shapes(dev, (370, 1220), "tf_efficientnet_b7_ns")
+    res = {"k4_b7": k4_at_shapes(dev, b7_shapes, "kitti_k4_b7", seed=27)}
+    # the highcap configs' lift (C = 64 over the rig their training runs)
+    # and K2 at feature 64 x 8, before they train
+    hcfg = load_config(default_config_path(KITTI_CONFIGS[1][0]))
+    check(hcfg.feature == hcfg.feature_2d_oc == HIGHCAP_C,
+          f"highcap feature {hcfg.feature}, {hcfg.feature_2d_oc}")
+    sample = make_synthetic_batch(hcfg, batch_size=1, seed=0)
+    rig = [torch.from_numpy(sample[k]).to(dev)
+           for k in ("projected_pix", "fov_mask")]
+    cases = tuple((dt, layout, points) for points in ("rig", "edges")
+                  for layout in ("nchw", "channels_last")
+                  for dt in (torch.bfloat16, torch.float32))
+    res["lift_highcap"] = lift_at_shape(
+        dev, rig, tuple(hcfg.img_shape), HIGHCAP_C, cases,
+        "kitti_lift_highcap", edge_seed=28, map_seed=80)
+    res["k2_highcap"] = k2_at_shape(dev, 4096, 512, 8 * HIGHCAP_C, (),
+                                    "kitti_k2_highcap", seed=29)
+    torch.cuda.empty_cache()
+    for name, tag, losses in KITTI_CONFIGS:
+        cfg = load_config(default_config_path(name), overrides={
+            "compute_dtype": "bfloat16", "dw_conv_grad": "pallas",
+            "log_every_n_steps": 1})
+        train_ds = synthetic_dataset(cfg, 2, seed=0)
+        val_ds = synthetic_dataset(cfg, 1, seed=1)
+        b7 = cfg.backbone_2d_name == "tf_efficientnet_b7_ns"
+        views = 1 if cfg.share_2d_backbone_gradient else cfg.n_views
+        logdir = tempfile.mkdtemp(prefix=f"occdepth_{tag}_")
+        try:
+            fit = fit_and_check(
+                cfg, train_ds, val_ds, logdir,
+                {f"train/{k}" for k in losses}, tag, smi,
+                n_dw_expected=len(b7_shapes) if b7 else 22,
+                steps=CONFIG_STEPS, k4_views=views,
+                lift_k2=int(cfg.n_views == 2))
+            fit.pop("trainer"), fit.pop("before")
+            res[tag] = fit
+        finally:
+            shutil.rmtree(logdir, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return res
+
+
+def near_tie_flips(pred, ref_logits, tag: str, margin: float) -> int:
+    """Voxels where a CLI's class grid differs from the in-process model's
+    argmax; fails unless every one lies where the in-process logits' two
+    best are within `margin` (a rounding apart)."""
+    ref = ref_logits.argmax(-1)
+    flips = pred != ref
+    top2 = np.sort(ref_logits[flips], axis=-1)[..., -2:]
+    check(bool((top2[..., 1] - top2[..., 0] <= margin).all()),
+          f"{tag}: {int(flips.sum())} voxels differ from the in-process "
+          "argmax off its near-ties")
+    return int(flips.sum())
+
+
+OUT_FRAMES = 2  # per sequence of the outputs tree (val 08; test 11-21 -> 08)
+TIE_MARGIN = 1e-2  # bf16 logits: voxels whose two best are a rounding apart
+
+
+def phase_outputs(dev, smi: str) -> dict:
+    """24. The output CLIs at full width (the flagship, bf16) on a
+    make_kitti_tree tree whose eleven test sequences are symlinks of val
+    sequence 08, from a reference-schema .ckpt of seeded random weights,
+    each CLI's main in-process with the launch counts set to 0 just
+    before: infer on one frame's PNGs and calib.txt under
+    decoder_conv_impl=auto and =pallas (rendered where matplotlib
+    imports); generate_output over the val split; generate_kitti_submission
+    over the test split, then the port's validator (no errors);
+    dump_batch --synthetic; infer once more as a subprocess.  Each CLI's
+    y_pred equals the in-process model's argmax on the same batch (flips
+    only at near-ties); the lift and K2 once per frame, K3 ten times per
+    frame under pallas and never under auto; wall ms/frame of each CLI
+    (host clock: data, forward, writing) and the forward's device
+    ms/frame (CUDA events)."""
+    import importlib.util
+    import pickle
+
+    import torch
+
+    from occdepth_tpu_torch.config import default_config_path, load_config
+    from occdepth_tpu_torch.data.kitti import KittiDataset, Loader
+    from occdepth_tpu_torch.data.kitti_io import TEST_SEQUENCES, get_inv_map
+    from occdepth_tpu_torch.models import OccDepthModel
+    from occdepth_tpu_torch.scripts import (
+        dump_batch,
+        generate_kitti_submission,
+        generate_output,
+        infer,
+        valid_kitti_submission,
+    )
+    from occdepth_tpu_torch.scripts.common import load_model, model_inputs
+    from occdepth_tpu_torch.testing import make_kitti_tree, randomize_weights
+    from occdepth_tpu_torch.training.trainer import strip_metadata
+
+    can_render = importlib.util.find_spec("matplotlib") is not None
+    base = tempfile.mkdtemp(prefix="occdepth_outputs_")
+    res = {"launches": {}, "render": can_render}
+    try:
+        t0 = time.perf_counter()
+        make_kitti_tree(base, n_frames=OUT_FRAMES)
+        seqs = os.path.join(base, "kitti", "dataset", "sequences")
+        for seq in TEST_SEQUENCES:
+            os.symlink(os.path.join(seqs, "08"), os.path.join(seqs, seq))
+        over = [f"data_root={base}/kitti", f"data_preprocess_root={base}/pre",
+                f"data_stereo_depth_root={base}/stereo_depth",
+                f"logdir={base}/logdir", "compute_dtype=bfloat16"]
+        config = default_config_path(FLAGSHIP)
+        cfg = load_config(config, overrides=dict(
+            a.split("=", 1) for a in over))
+        ckpt = os.path.join(base, "ref.ckpt")
+        torch.save({"state_dict": randomize_weights(
+            OccDepthModel(cfg), seed=0).state_dict()}, ckpt)
+        log("outputs_tree", seconds=f"{time.perf_counter() - t0:.1f}",
+            test_sequences=len(TEST_SEQUENCES), frames_per_sequence=OUT_FRAMES,
+            matplotlib=can_render)
+        models = {impl: load_model(dataclasses.replace(
+            cfg, decoder_conv_impl=impl), torch_ckpt=ckpt)
+            for impl in ("auto", "pallas")}
+
+        def logits_of(impl, batch):
+            with torch.no_grad():
+                out = models[impl](model_inputs(batch, dev))["ssc_logit"]
+            return out.float().cpu().numpy()
+
+        def device_ms(impl, batch):
+            inputs = model_inputs(batch, dev)
+            with torch.no_grad():
+                return cuda_ms(lambda: models[impl](inputs), iters=5,
+                               warmup=1)
+
+        def run(tag, main, argv, frames):
+            reset_counts()
+            t0 = time.perf_counter()
+            written = main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            res["launches"][tag] = launches = read_counts()
+            check(len(written) == frames, f"{tag}: wrote {len(written)} "
+                  f"files for {frames} frames")
+            return written, launches, 1e3 * wall / frames
+
+        # ---- infer, under auto and pallas ----
+        left, right = (os.path.join(seqs, "08", d, "000000.png")
+                       for d in ("image_2", "image_3"))
+        calib = os.path.join(seqs, "08", "calib.txt")
+        frame_args = ["--config", config, "--left", left, "--right", right,
+                      "--calib", calib, "--torch-ckpt", ckpt]
+        batch = infer.build_batch(cfg, [left], [right], calib)[0]
+        for impl in ("auto", "pallas"):
+            out = os.path.join(base, f"infer_{impl}.pkl")
+            render = (["--render", os.path.join(base, f"infer_{impl}.png")]
+                      if can_render else [])
+            (path,), n, wall_ms = run(
+                f"infer_{impl}", infer.main, frame_args + [
+                    "--output", out, *render,
+                    f"decoder_conv_impl={impl}"] + over, 1)
+            with open(path, "rb") as f:
+                record = pickle.load(f)
+            flips = near_tie_flips(record["y_pred"],
+                                   logits_of(impl, batch)[0],
+                                   f"infer_{impl}", TIE_MARGIN)
+            k3 = 10 if impl == "pallas" else 0
+            ms = device_ms(impl, batch)
+            log(f"infer_{impl}", gpu=repr(smi), wall_ms_per_frame=f"{wall_ms:.1f}",
+                device_ms_per_frame=f"{ms:.3f}", flips=flips,
+                y_pred=tuple(record["y_pred"].shape),
+                png_bytes=(os.path.getsize(render[1]) if render
+                           else "no matplotlib"),
+                **{f"{k}_launches": v for k, v in n.items()})
+            check(record["y_pred"].shape == tuple(cfg.full_scene_size)
+                  and record["fov_mask_1"].size == record["y_pred"].size,
+                  f"infer_{impl}: record {record['y_pred'].shape}")
+            check(n["flosp_stereo_lift"] == n["crp_relation_matmul"] == 1
+                  and n["conv3x3"] == k3 and n["stereo_cosine_fuse"] == 0,
+                  f"infer_{impl}: launches {n}")
+            if render:
+                check(os.path.getsize(render[1]) > 1000,
+                      f"infer_{impl}: no rendered PNG")
+            res[f"infer_{impl}"] = {"wall_ms": wall_ms, "device_ms": ms}
+
+        # ---- generate_output over the val split ----
+        val = [b for b in Loader(KittiDataset(cfg, "val"), 1, shuffle=False,
+                                 drop_last=False, num_workers=0)]
+        out_dir = os.path.join(base, "outputs")
+        written, n, wall_ms = run("generate_output", generate_output.main, [
+            "--config", config, "--torch-ckpt", ckpt, "--output-dir",
+            out_dir] + over, len(val))
+        flips = 0
+        for path, b in zip(written, val):
+            with open(path, "rb") as f:
+                record = pickle.load(f)
+            check(os.path.basename(path) == f"08_{b['frame_id'][0]}.pkl"
+                  and {"y_pred", "target", "fov_mask_1", "cam_k",
+                       "T_velo_2_cam"} <= set(record),
+                  f"generate_output: {path} keys {sorted(record)}")
+            flips += near_tie_flips(record["y_pred"],
+                                    logits_of("auto", strip_metadata(b))[0],
+                                    "generate_output", TIE_MARGIN)
+        check(n["flosp_stereo_lift"] == n["crp_relation_matmul"] == len(val)
+              and n["conv3x3"] == 0, f"generate_output: launches {n}")
+        log("generate_output", gpu=repr(smi), frames=len(val),
+            wall_ms_per_frame=f"{wall_ms:.1f}", flips=flips,
+            **{f"{k}_launches": v for k, v in n.items()})
+        res["generate_output"] = {"wall_ms": wall_ms}
+
+        # ---- the KITTI submission and its validator ----
+        sub_dir = os.path.join(base, "submission")
+        frames = len(TEST_SEQUENCES) * OUT_FRAMES
+        written, n, wall_ms = run(
+            "submission", generate_kitti_submission.main, [
+                "--config", config, "--torch-ckpt", ckpt, "--output-dir",
+                sub_dir] + over, frames)
+        errors = valid_kitti_submission.validate_dir(sub_dir)
+        test0 = next(iter(Loader(KittiDataset(cfg, "test"), 1, shuffle=False,
+                                 drop_last=False, num_workers=0)))
+        labels = np.fromfile(written[0], np.uint16)
+        ref_logits = logits_of("auto", strip_metadata(test0))[0]
+        raw = get_inv_map()[ref_logits.argmax(-1).reshape(-1)]
+        differ = int((labels != raw).sum())
+        top2 = np.sort(ref_logits.reshape(-1, ref_logits.shape[-1])[
+            labels != raw], axis=-1)[..., -2:]
+        log("submission", gpu=repr(smi), frames=frames,
+            wall_ms_per_frame=f"{wall_ms:.1f}", validator_errors=len(errors),
+            first_frame_differs=differ,
+            **{f"{k}_launches": v for k, v in n.items()})
+        check(errors == [], f"the validator found {errors[:5]}")
+        check(bool((top2[..., 1] - top2[..., 0] <= TIE_MARGIN).all()),
+              f"submission: {differ} labels differ off the near-ties")
+        check(n["flosp_stereo_lift"] == n["crp_relation_matmul"] == frames,
+              f"submission: launches {n}")
+        res["submission"] = {"wall_ms": wall_ms}
+
+        # ---- dump_batch --synthetic ----
+        pkl = os.path.join(base, "batch.pkl")
+        dump_batch.main(["--config", config, "--synthetic", "--out", pkl]
+                        + over)
+        with open(pkl, "rb") as f:
+            dumped = pickle.load(f)
+        check(dumped["img"].shape == (1, 2, *cfg.img_shape, 3)
+              and dumped["target"].shape == (1, *cfg.full_scene_size)
+              and all(isinstance(v, np.ndarray) for v in dumped.values()),
+              f"dump_batch: {sorted((k, v.shape) for k, v in dumped.items())}")
+
+        # ---- infer as a user runs it ----
+        out = os.path.join(base, "infer_cli.pkl")
+        run_cli("infer", frame_args + ["--output", out] + over, "infer_cli")
+        with open(out, "rb") as f, open(os.path.join(
+                base, "infer_auto.pkl"), "rb") as g:
+            check(np.array_equal(pickle.load(f)["y_pred"],
+                                 pickle.load(g)["y_pred"]),
+                  "the infer subprocess and in-process runs differ")
+        del models
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_nyu_outputs(dev, smi: str, base: str) -> dict:
+    """25. generate_output over the NYU b4 config's test split (the tree
+    of phases 20-22, bf16, a reference-schema .ckpt): pickles with
+    cam_pose = inv(T_velo_2_cam) and vox_origin, y_pred equal to the
+    in-process argmax (flips only at near-ties), the lift and K2 once per
+    batch."""
+    import pickle
+
+    import torch
+
+    from occdepth_tpu_torch.config import default_config_path, load_config
+    from occdepth_tpu_torch.data.kitti import Loader
+    from occdepth_tpu_torch.data.nyu import NYUDataset
+    from occdepth_tpu_torch.models import OccDepthModel
+    from occdepth_tpu_torch.scripts import generate_output
+    from occdepth_tpu_torch.scripts.common import load_model, model_inputs
+    from occdepth_tpu_torch.testing import randomize_weights
+    from occdepth_tpu_torch.training.trainer import strip_metadata
+
+    over = nyu_overrides(base, "outputs", compute_dtype="bfloat16")
+    cfg = load_config(default_config_path(NYU_B4), overrides=over)
+    ckpt = os.path.join(base, "outputs_ref.ckpt")
+    torch.save({"state_dict": randomize_weights(
+        OccDepthModel(cfg), seed=0).state_dict()}, ckpt)
+    out_dir = os.path.join(base, "nyu_outputs")
+    reset_counts()
+    t0 = time.perf_counter()
+    written = generate_output.main(
+        ["--config", default_config_path(NYU_B4), "--torch-ckpt", ckpt,
+         "--output-dir", out_dir] + [f"{k}={v}" for k, v in over.items()])
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / max(1, len(written))
+    launches = read_counts()
+    model = load_model(cfg, torch_ckpt=ckpt)
+    loader = Loader(NYUDataset(cfg, "test"), cfg.batch_size_per_gpu,
+                    shuffle=False, drop_last=False, num_workers=0)
+    flips, i = 0, 0
+    for b in loader:
+        with torch.no_grad():
+            logits = model(model_inputs(strip_metadata(b), dev))[
+                "ssc_logit"].float().cpu().numpy()
+        for j in range(len(b["frame_id"])):
+            with open(written[i], "rb") as f:
+                record = pickle.load(f)
+            i += 1
+            check(np.allclose(record["cam_pose"] @ record["T_velo_2_cam"],
+                              np.eye(4), atol=1e-5)
+                  and "vox_origin" in record and "target" in record,
+                  f"nyu generate_output: {sorted(record)}")
+            flips += near_tie_flips(record["y_pred"], logits[j],
+                                    "nyu_generate_output", TIE_MARGIN)
+    n_batches = len(loader)
+    log("nyu_generate_output", gpu=repr(smi), frames=len(written),
+        wall_ms_per_frame=f"{wall_ms:.1f}", flips=flips,
+        **{f"{k}_launches": v for k, v in launches.items()})
+    check(i == len(written) == NYU_FRAMES, f"NYU outputs: {len(written)}")
+    check(launches["flosp_stereo_lift"] == launches["crp_relation_matmul"]
+          == n_batches, f"NYU outputs launches {launches}")
+    del model
+    torch.cuda.empty_cache()
+    return {"launches": launches, "wall_ms": wall_ms}
+
+
+EXPORT_RTOL = 1e-5  # x max|eager|: the same kernels and ops, replayed
+
+
+def phase_export(dev, smi: str) -> dict:
+    """26. Export at full width: the flagship (bf16, decoder_conv_impl=
+    pallas, seeded random weights) traced by export_forward on the card,
+    saved, loaded by load_exported; each forward of the loaded program
+    launches the lift and K2 once and K3 ten times (counts set to 0 just
+    before); its logits equal the eager model's within EXPORT_RTOL x
+    max|eager|; the export and load time in s and the device ms/frame of
+    the loaded program and of eager (CUDA events, in turns)."""
+    import torch
+
+    from occdepth_tpu_torch.config import default_config_path, load_config
+    from occdepth_tpu_torch.data.batch import make_synthetic_batch
+    from occdepth_tpu_torch.models import OccDepthModel
+    from occdepth_tpu_torch.scripts.common import model_inputs
+    from occdepth_tpu_torch.scripts.export_model import (
+        INPUT_KEYS,
+        export_forward,
+        load_exported,
+    )
+    from occdepth_tpu_torch.testing import randomize_weights
+
+    cfg = load_config(default_config_path(FLAGSHIP), overrides={
+        "compute_dtype": "bfloat16", "decoder_conv_impl": "pallas"})
+    model = randomize_weights(OccDepthModel(cfg), seed=0).to(dev).eval()
+    batch = model_inputs(make_synthetic_batch(cfg, batch_size=1, seed=3), dev)
+    inputs = {k: v for k, v in batch.items() if k in INPUT_KEYS}
+    base = tempfile.mkdtemp(prefix="occdepth_export_")
+    try:
+        t0 = time.perf_counter()
+        exported = export_forward(cfg, model, batch)
+        export_s = time.perf_counter() - t0
+        nodes = sorted({str(n.target) for n in exported.graph.nodes
+                        if "occdepth" in str(n.target)})
+        path = os.path.join(base, "flagship.pt2")
+        torch.export.save(exported, path)
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        program = load_exported(path).module()
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    with torch.no_grad():
+        reset_counts()
+        out = program(inputs)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        eager = model(batch)["ssc_logit"]
+        err = (out - eager).abs().max().item()
+        tol = EXPORT_RTOL * eager.abs().max().item()
+        times = {"exported": [], "eager": []}
+        for which in ("exported", "eager", "eager", "exported"):
+            fn = (lambda: program(inputs)) if which == "exported" else (
+                lambda: model(batch))
+            times[which].append(cuda_ms(fn, iters=10, warmup=2))
+    log("export", gpu=repr(smi), export_s=f"{export_s:.2f}",
+        load_s=f"{load_s:.2f}", bytes=size, ops=",".join(nodes),
+        max_abs_err=err, tol=f"{tol:.3e}",
+        exported_ms_per_frame=",".join(f"{t:.3f}" for t in times["exported"]),
+        eager_ms_per_frame=",".join(f"{t:.3f}" for t in times["eager"]),
+        **{f"{k}_launches": v for k, v in launches.items()})
+    check({"occdepth.flosp_stereo_lift.default",
+           "occdepth.crp_relation_matmul.default",
+           "occdepth.conv3x3.default"} <= set(nodes),
+          f"the exported graph calls {nodes}")
+    check(launches["flosp_stereo_lift"] == launches["crp_relation_matmul"]
+          == 1 and launches["conv3x3"] == 10
+          and launches["stereo_cosine_fuse"] == 0,
+          f"the exported program's launches {launches}")
+    check(tuple(out.shape) == (1, *cfg.full_scene_size, cfg.n_classes)
+          and err <= tol, f"exported vs eager: {err} > {tol}")
+    del program, exported, model
+    torch.cuda.empty_cache()
+    return {"launches": launches, "export_s": export_s, "load_s": load_s,
+            "times": times, "max_abs_err": err}
+
+
 def main() -> None:
     import torch
 
@@ -2031,6 +2504,7 @@ def main() -> None:
         tartanair_fov_share,
     )
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -2139,8 +2613,10 @@ def main() -> None:
     finally:
         shutil.rmtree(ta_base, ignore_errors=True)
     occluded = phase_occluded(dev, smi)
+    # ---- 23. the shipped KITTI configs no other phase trains ----
+    configs = phase_kitti_configs(dev, smi)
 
-    # ---- 20-22. NYU kernels, training and eval ----
+    # ---- 20-22, 25. NYU kernels, training, eval and outputs ----
     nyu_base = tempfile.mkdtemp(prefix="occdepth_nyu_")
     try:
         t0 = time.perf_counter()
@@ -2155,8 +2631,13 @@ def main() -> None:
                                     nyu["k4"]["n_convs"],
                                     nyu["k4_b7"]["n_convs"])
         nyu_eval = phase_nyu_eval(dev, smi, nyu_base)
+        nyu_outputs = phase_nyu_outputs(dev, smi, nyu_base)
     finally:
         shutil.rmtree(nyu_base, ignore_errors=True)
+
+    # ---- 24, 26. the output CLIs and export at full width ----
+    outputs = phase_outputs(dev, smi)
+    exported = phase_export(dev, smi)
 
     def by_path(name):
         paths = {"serve": launches[name], "train": train["launches"][name],
@@ -2167,7 +2648,15 @@ def main() -> None:
                  "occluded_train": occluded["launches"][name],
                  "nyu_train": nyu_train["launches"][name],
                  "nyu_b7": nyu_train["b7"]["launches"][name],
-                 "nyu_eval": nyu_eval["launches"][name]}
+                 "nyu_eval": nyu_eval["launches"][name],
+                 **{tag: configs[tag]["launches"][name]
+                    for _, tag, _ in KITTI_CONFIGS},
+                 "infer": sum(outputs["launches"][t][name]
+                              for t in ("infer_auto", "infer_pallas")),
+                 "outputs": sum(outputs["launches"][t][name]
+                                for t in ("generate_output", "submission"))
+                 + nyu_outputs["launches"][name],
+                 "export": exported["launches"][name]}
         return {"launches": sum(paths.values()), "launches_by_path": paths}
 
     def at_ta(r, keys=("max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -2206,6 +2695,12 @@ def main() -> None:
                    "480x640 image and its virtual view, the tree's rig")
              for name, r, c in (("b4", nyu["lift"], 100),
                                 ("b7", nyu["lift_b7"], 200))},
+         "kitti_highcap": dict(at_ta(configs["lift_highcap"]), **{
+             k: configs["lift_highcap"][k] for k in (
+                 "yardstick_ms", "fwd_ms_events", "fwd_bwd_ms_events",
+                 "fov_share")},
+             shape="batch 1, 262,144 voxels, C=64, bf16 NCHW maps of a "
+                   "370x1220 image, the highcap configs' rig"),
          "timed": "serving shape: batch 2, 262,144 voxels, C=32, bf16 NCHW "
                   "maps (their channels-last copies timed), the rig's "
                   "projection, P=1; yardstick: per-scale index_select + K1"},
@@ -2215,8 +2710,7 @@ def main() -> None:
          **by_path("crp_relation_matmul"),
          "max_abs_err": max(t["max_abs_err"] for t in k2.values()),
          **{k: k2["bfloat16"][k] for k in ("ms", "plain_ms", "bound_ms",
-                                            "bound_by")},
-         "library_ms": None,
+                                            "bound_by", "library_ms")},
          "fp32": k2["float32"],
          "tartanair": {name: dict(at_ta(r), **{
              k: r[k] for k in ("kernel", "simt_ms", "library_ms") if k in r})
@@ -2227,6 +2721,10 @@ def main() -> None:
              for cfg_name, res_k2, c in (("b4", nyu["k2"], 800),
                                          ("b7", nyu["k2_b7"], 1600))
              for name, r in res_k2.items()},
+         "kitti_highcap": {name: dict(at_ta(r), **{
+             k: r[k] for k in ("kernel", "simt_ms", "library_ms") if k in r},
+             shape="(1,4,4096,512)@(1,512,512), the highcap configs' CRP")
+             for name, r in configs["k2_highcap"].items()},
          "timed": "the four relations at batch 2 in one call, (4096,512)@"
                   "(512,256) each, bf16 (wgmma); fp32 (SIMT) beside"},
         {"name": "dw_filter_grad", "route": "cuda",
@@ -2246,6 +2744,12 @@ def main() -> None:
                             shape=f"the {name} encoder's stride-1 dw convs on "
                                   "a 480x640 image, bf16, batch 1")
                  for name, r in (("b4", nyu["k4"]), ("b7", nyu["k4_b7"]))},
+         "kitti_b7": dict(at_ta(configs["k4_b7"]),
+                          library_ms=configs["k4_b7"]["library_ms"],
+                          n_convs=configs["k4_b7"]["n_convs"],
+                          bound_share=configs["k4_b7"]["bound_share"],
+                          shape="the b7 encoder's stride-1 dw convs on a "
+                                "370x1220 image, bf16, batch 1"),
          "timed": f"sum over the {k4['n_convs']} stride-1 depthwise convs "
                   "of one flagship view, bf16, batch 1"},
         {"name": "conv3x3", "route": "cuda",
@@ -2291,6 +2795,7 @@ def main() -> None:
                   "conv-equivalent each, bf16; library: torch.matmul of p "
                   "expanded over the steps"},
     ]}))
+    log("total", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,10 +26,15 @@ The kernel's output is NHWC memory, returned as (B, Co, H, W) in
 channels-last (BN and LeakyReLU keep the format) feeds the next conv
 without a transpose.  The packing copies count in the kernel's time.
 
-The JAX package defines no gradient for its Pallas kernel, so `conv3x3`
-is forward-only: with grad mode on and an input that requires grad it
-raises, on either device.  For CPU tensors it runs the plain version; for
-CUDA tensors it launches the kernel or raises.
+The conv is the registered operator `occdepth::conv3x3`
+(`torch.library.custom_op`), so a traced or exported program calls the
+kernel by name: its CUDA implementation is the kernel launch, returning
+the (B, H, W, Co) buffer that `conv3x3` views as channels-last (B, Co, H,
+W); its CPU implementation the plain version, in the same layout, so a
+program traced on either device reads the same strides.  The JAX package
+defines no gradient for its Pallas kernel, so `conv3x3` is forward-only:
+with grad mode on and an input that requires grad it raises, on either
+device.
 """
 from __future__ import annotations
 
@@ -151,12 +156,35 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor,
             float32 parameter, as the layers do).
         b: (Co,) float32, or None.
 
-    Returns (B, Co, H, W) in x's dtype: contiguous (NCHW) from the plain
-    version on the CPU, channels-last memory from the kernel.
+    Returns (B, Co, H, W) in x's dtype, channels-last memory: a view of
+    the operator's contiguous (B, H, W, Co) buffer.
     """
     _forbid_grad(x, w, b)
-    if x.device.type == "cpu":
-        return conv3x3_reference(x, w, b)
+    return torch.ops.occdepth.conv3x3(x, w, b).permute(0, 3, 1, 2)
+
+
+@torch.library.custom_op("occdepth::conv3x3", mutates_args=(),
+                         device_types="cuda")
+def _conv3x3_op(x: torch.Tensor, w: torch.Tensor,
+                b: Optional[torch.Tensor]) -> torch.Tensor:
+    """The operator's CUDA implementation: one kernel launch (after the
+    packing copies), returning the contiguous (B, H, W, Co) buffer."""
+    return _launch(x, w, b)
+
+
+@_conv3x3_op.register_kernel("cpu")
+def _conv3x3_cpu(x, w, b):
+    return conv3x3_reference(x, w, b).permute(0, 2, 3, 1).contiguous()
+
+
+@_conv3x3_op.register_fake
+def _conv3x3_fake(x, w, b):
+    B, _, H, W = x.shape
+    return x.new_empty((B, H, W, w.shape[0]))
+
+
+def _launch(x, w, b):
+    """The kernel launch behind `conv3x3` (CUDA tensors)."""
     if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[2:]) != (3, 3):
         raise ValueError(f"conv3x3: x {tuple(x.shape)}, w {tuple(w.shape)}")
     B, Ci, H, W = x.shape
@@ -177,7 +205,7 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor,
             raise ValueError(f"conv3x3: {name} on {t.device}, x on {x.device}")
     out = torch.empty((B, H, W, Co), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
-        return out.permute(0, 3, 1, 2)
+        return out
     xp = to_padded_channels_last(x)
     wp = pack_conv3x3_weight(w)
     rc = cuda_lib.library().occ_conv3x3(
@@ -187,7 +215,7 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor,
     )
     cuda_lib.check(rc, "conv3x3")
     conv3x3.launches += 1
-    return out.permute(0, 3, 1, 2)
+    return out
 
 
 conv3x3.launches = 0

@@ -11,10 +11,15 @@ where TMA can read it (its contiguous dim unit-stride, the other strides
 multiples of 16 bytes, 16-byte aligned), else as `pad_for_tma`'s copy:
 the logits for NYU's N = 2,025 voxels (a 4,050-byte stride), mega for
 TartanAir's M = 1,350 mega-voxels (a 2,700-byte stride).  fp32
-operands and other logits layouts take the SIMT kernel.  On
-CUDA with gradients enabled the kernel is the forward of an autograd
-Function whose backward is the plain version's gradient as two matmuls
-(the JAX package computes them outside any Pallas kernel too):
+operands and other logits layouts take the SIMT kernel.
+
+The product is the registered operator `occdepth::crp_relation_matmul`
+(`torch.library.custom_op`), so a traced or exported program calls the
+kernel by name: its CUDA implementation is the kernel launch, its CPU
+implementation the plain version, each returning the contiguous (..., C,
+N) buffer that `crp_relation_matmul` views as (..., N, C).  Its autograd formula is the plain
+version's gradient as two matmuls (the JAX package computes them outside
+any Pallas kernel too):
 
     dP = (dOut @ mega^T) * s * (1 - s),   dmega = s^T @ dOut,   s = sigmoid(P)
 """
@@ -58,39 +63,56 @@ def crp_relation_matmul(p_logit: torch.Tensor,
         mega: (B, M, C) for 4-D or 3-D logits (shared by the R relations),
             (M, C) for 2-D ones; same dtype, any strides.
 
-    Returns (B, R, N, C), (B, N, C) or (N, C) float32.  On CUDA the result
-    is a transposed view of a contiguous (..., C, N) buffer: the
-    channels-first layout the CRP's next conv reads.
+    Returns (B, R, N, C), (B, N, C) or (N, C) float32: a transposed view
+    of the operator's contiguous (..., C, N) buffer, the channels-first
+    layout the CRP's next conv reads.
     """
-    if p_logit.device.type == "cpu":
-        return crp_relation_matmul_reference(p_logit, mega)
-    if torch.is_grad_enabled() and (p_logit.requires_grad
-                                    or mega.requires_grad):
-        return _CrpMatmulFn.apply(p_logit, mega)
+    return torch.ops.occdepth.crp_relation_matmul(
+        p_logit, mega).transpose(-1, -2)
+
+
+@torch.library.custom_op("occdepth::crp_relation_matmul", mutates_args=(),
+                         device_types="cuda")
+def _crp_op(p_logit: torch.Tensor, mega: torch.Tensor) -> torch.Tensor:
+    """The operator's CUDA implementation: one kernel launch, returning
+    the contiguous (..., C, N) buffer."""
     return _launch(p_logit, mega)
 
 
-class _CrpMatmulFn(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, p_logit, mega):
-        ctx.save_for_backward(p_logit, mega)
-        return _launch(p_logit, mega)
+@_crp_op.register_kernel("cpu")
+def _crp_cpu(p_logit, mega):
+    return crp_relation_matmul_reference(p_logit, mega).transpose(
+        -1, -2).contiguous()
 
-    @staticmethod
-    def backward(ctx, grad_out):
-        p_logit, mega = ctx.saved_tensors
-        s = torch.sigmoid(p_logit.float())
-        mega_b = _broadcast_mega(p_logit, mega).float()
-        d_p = d_mega = None
-        if ctx.needs_input_grad[0]:
-            d_p = (grad_out @ mega_b.transpose(-1, -2)) * (s * (1.0 - s))
-            d_p = d_p.to(p_logit.dtype)
-        if ctx.needs_input_grad[1]:
-            d_mega = s.transpose(-1, -2) @ grad_out
-            if p_logit.dim() == mega.dim() + 1:
-                d_mega = d_mega.sum(dim=-3)  # over the relations
-            d_mega = d_mega.to(mega.dtype)
-        return d_p, d_mega
+
+@_crp_op.register_fake
+def _crp_fake(p_logit, mega):
+    lead, (N, C) = p_logit.shape[:-2], (p_logit.shape[-2], mega.shape[-1])
+    return p_logit.new_empty((*lead, C, N), dtype=torch.float32)
+
+
+def _crp_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _crp_backward(ctx, grad_out):
+    p_logit, mega = ctx.saved_tensors
+    grad_out = grad_out.transpose(-1, -2)  # of the (..., C, N) buffer
+    s = torch.sigmoid(p_logit.float())
+    mega_b = _broadcast_mega(p_logit, mega).float()
+    d_p = d_mega = None
+    if ctx.needs_input_grad[0]:
+        d_p = (grad_out @ mega_b.transpose(-1, -2)) * (s * (1.0 - s))
+        d_p = d_p.to(p_logit.dtype)
+    if ctx.needs_input_grad[1]:
+        d_mega = s.transpose(-1, -2) @ grad_out
+        if p_logit.dim() == mega.dim() + 1:
+            d_mega = d_mega.sum(dim=-3)  # over the relations
+        d_mega = d_mega.to(mega.dtype)
+    return d_p, d_mega
+
+
+_crp_op.register_autograd(_crp_backward, setup_context=_crp_setup)
 
 
 def _sane_strides(t: torch.Tensor) -> list:
@@ -137,7 +159,8 @@ def pad_for_tma(t: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 def _launch(p_logit, mega):
-    """The kernel launch behind `crp_relation_matmul` (CUDA tensors)."""
+    """The kernel launch behind `crp_relation_matmul` (CUDA tensors):
+    returns the contiguous (B, R, C, N), (B, C, N) or (C, N) buffer."""
     dim = p_logit.dim()
     if dim not in (2, 3, 4) or mega.dim() != min(dim, 3):
         raise ValueError(f"crp_relation_matmul: shapes {tuple(p_logit.shape)}"
@@ -159,8 +182,7 @@ def _launch(p_logit, mega):
     if g3.shape != (B, M, C):
         raise ValueError(f"crp_relation_matmul: shapes {tuple(p_logit.shape)}"
                          f" and {tuple(mega.shape)}")
-    out = torch.empty((B, R, C, N), dtype=torch.float32,
-                      device=p4.device).transpose(2, 3)
+    out = torch.empty((B, R, C, N), dtype=torch.float32, device=p4.device)
     path = int(wgmma_path(p4, g3))
     if path and not tma_reads(p4, 2):
         p4 = pad_for_tma(p4, 2)
@@ -170,7 +192,8 @@ def _launch(p_logit, mega):
     rc = cuda_lib.library().occ_crp_relation_matmul(
         p4.data_ptr(), g3.data_ptr(), out.data_ptr(),
         _DTYPE_CODE[p4.dtype], path, B, R, N, M, C,
-        ps[0], ps[1], ps[2], ps[3], gs[0], gs[1], gs[2], *out.stride(),
+        ps[0], ps[1], ps[2], ps[3], gs[0], gs[1], gs[2],
+        *out.transpose(2, 3).stride(),
         torch.cuda.current_stream(p4.device).cuda_stream,
     )
     cuda_lib.check(rc, "crp_relation_matmul")

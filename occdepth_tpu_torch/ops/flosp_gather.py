@@ -11,7 +11,12 @@ an out-of-FOV point is the sentinel row, so the gather needs no branch).
 (`csrc/stereo_fuse.cu`, `occ_flosp_stereo_lift`): gather, mean over the
 pattern points, K1's fusion and the sum over scales, writing the (B, N, C)
 grid once.  Its plain version `flosp_stereo_lift_reference` is the
-per-scale loop above.
+per-scale loop above.  The lift is the registered operator
+`occdepth::flosp_stereo_lift` (`torch.library.custom_op`), so a traced or
+exported program calls the kernel by name: its CUDA implementation is the
+kernel launch, its CPU implementation the plain version, and its
+registered gradient autograd of the plain version, recomputed from the
+saved inputs.
 """
 from __future__ import annotations
 
@@ -128,42 +133,56 @@ def flosp_stereo_lift(
             scale (divided by each scale with floor division).
         fov_mask: (B, 2, N, P) bool.
 
-    Returns (B, N, C) float32, contiguous.  On CUDA one kernel launch;
-    with a map that requires grad, an autograd Function whose backward is
-    autograd of the plain version (recomputed from the saved inputs).
+    Returns (B, N, C) float32, contiguous.  On CUDA one kernel launch.
     """
     maps = tuple(maps)
     if len(maps) != len(project_res):
         raise ValueError(f"flosp_stereo_lift: {len(maps)} maps for scales "
                          f"{tuple(project_res)}")
-    if maps[0].device.type == "cpu":
-        return flosp_stereo_lift_reference(maps, projected_pix, fov_mask,
-                                           project_res, eps)
-    if torch.is_grad_enabled() and any(m.requires_grad for m in maps):
-        return _LiftFn.apply(projected_pix, fov_mask, tuple(project_res), eps,
-                             *maps)
+    return torch.ops.occdepth.flosp_stereo_lift(
+        list(maps), projected_pix, fov_mask, [int(s) for s in project_res],
+        float(eps))
+
+
+_LIFT_SCHEMA = ("(Tensor[] maps, Tensor projected_pix, Tensor fov_mask, "
+                "int[] project_res, float eps) -> Tensor")
+
+
+@torch.library.custom_op("occdepth::flosp_stereo_lift", mutates_args=(),
+                         device_types="cuda", schema=_LIFT_SCHEMA)
+def _lift_op(maps, projected_pix, fov_mask, project_res, eps):
+    """The operator's CUDA implementation: one kernel launch."""
     return _launch_lift(maps, projected_pix, fov_mask, project_res, eps)
 
 
-class _LiftFn(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, projected_pix, fov_mask, project_res, eps, *maps):
-        ctx.save_for_backward(projected_pix, fov_mask, *maps)
-        ctx.project_res, ctx.eps = project_res, eps
-        return _launch_lift(maps, projected_pix, fov_mask, project_res, eps)
+@_lift_op.register_kernel("cpu")
+def _lift_cpu(maps, projected_pix, fov_mask, project_res, eps):
+    return flosp_stereo_lift_reference(maps, projected_pix, fov_mask,
+                                       project_res, eps)
 
-    @staticmethod
-    def backward(ctx, grad_out):
-        pix, fov, *maps = ctx.saved_tensors
-        inputs = [m.detach().requires_grad_(need) for m, need in
-                  zip(maps, ctx.needs_input_grad[4:])]
-        wanted = [m for m in inputs if m.requires_grad]
-        with torch.enable_grad():
-            out = flosp_stereo_lift_reference(inputs, pix, fov,
-                                              ctx.project_res, ctx.eps)
-        grads = iter(torch.autograd.grad(out, wanted, grad_out))
-        return (None, None, None, None) + tuple(
-            next(grads) if m.requires_grad else None for m in inputs)
+
+@_lift_op.register_fake
+def _lift_fake(maps, projected_pix, fov_mask, project_res, eps):
+    B, _, C = maps[0].shape[:3]
+    return maps[0].new_empty((B, projected_pix.shape[2], C),
+                             dtype=torch.float32)
+
+
+def _lift_setup(ctx, inputs, output):
+    maps, projected_pix, fov_mask, ctx.project_res, ctx.eps = inputs
+    ctx.save_for_backward(projected_pix, fov_mask, *maps)
+
+
+def _lift_backward(ctx, grad_out):
+    """Every map's gradient: autograd of the plain version, recomputed."""
+    pix, fov, *maps = ctx.saved_tensors
+    _, vjp = torch.func.vjp(
+        lambda *m: flosp_stereo_lift_reference(m, pix, fov, ctx.project_res,
+                                               ctx.eps), *maps)
+    return [g.contiguous() for g in vjp(grad_out)], None, None, None, None
+
+
+_lift_op.register_autograd(_lift_backward, setup_context=_lift_setup)
 
 
 def channels_last_map(x2d: torch.Tensor) -> torch.Tensor:

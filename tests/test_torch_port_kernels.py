@@ -898,3 +898,78 @@ def test_lift_and_fuse_raise_on_unsupported_input(cuda_device):
     with pytest.raises(ValueError):
         crp_relation_matmul(p, torch.randn(2, 31, 8, device=cuda_device
                                            ).bfloat16())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["flosp_stereo_lift", "crp_relation_matmul",
+                                "conv3x3"])
+def test_registered_ops_pass_opcheck_on_cuda(cuda_device, op):
+    """The operators' CUDA implementations (the kernels) against their fake
+    implementations (shapes, strides, dtypes) and the autograd
+    registration, on small card inputs, fp32 and bf16.  The lift's
+    gradient (autograd of its plain version: an index_add, whose atomics
+    sum in a different order on every run) is compared between eager and
+    traced runs in fp32 only; in bf16 each order rounds differently, so
+    the bf16 lift is checked without gradients."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, device=cuda_device, generator=g).to(dtype)
+
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        if op == "flosp_stereo_lift":
+            maps, pix, fov, scales = _lift_case(cuda_device, dtype, "nchw", 2,
+                                                300, 1, 32, (21, 37), seed=2)
+            grad = dtype == torch.float32
+            cases.append(([m.requires_grad_(grad) for m in maps], pix, fov,
+                          list(scales), 1e-8))
+        elif op == "crp_relation_matmul":
+            cases.append((randn(2, 4, 512, 64, dtype=dtype).requires_grad_(),
+                          randn(2, 64, 32, dtype=dtype).requires_grad_()))
+        else:
+            cases.append((randn(2, 12, 20, 24, dtype=dtype),
+                          randn(16, 12, 3, 3, dtype=dtype), randn(16)))
+    for args in cases:
+        torch.library.opcheck(getattr(torch.ops.occdepth, op).default, args)
+
+
+@pytest.mark.cuda
+def test_exported_program_launches_the_kernels_on_cuda(cuda_device, tmp_path):
+    """A tiny model (two views, CRP, decoder_conv_impl=pallas) exported on
+    the card, saved and loaded: each forward of the loaded program
+    launches the fused lift and K2 once and K3 as often as the eager
+    forward does, and its logits equal the eager ones within 1e-5 of
+    their largest (fp32 sums that cuDNN may order differently for the
+    traced graph's tensors)."""
+    from occdepth_tpu_torch.data.batch import make_synthetic_batch
+    from occdepth_tpu_torch.models import OccDepthModel
+    from occdepth_tpu_torch.scripts.export_model import (
+        INPUT_KEYS,
+        export_forward,
+        load_exported,
+    )
+    from occdepth_tpu_torch.testing import randomize_weights, tiny_kitti_config
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = tiny_kitti_config(decoder_conv_impl="pallas")
+    model = randomize_weights(OccDepthModel(cfg), seed=4).to(cuda_device)
+    model.eval()
+    batch = {k: torch.from_numpy(v).to(cuda_device) for k, v in
+             make_synthetic_batch(cfg, batch_size=1, seed=5).items()
+             if k in INPUT_KEYS}
+    counters = (flosp_stereo_lift, crp_relation_matmul, conv3x3)
+    before = [f.launches for f in counters]
+    with torch.no_grad():
+        eager = model(batch)["ssc_logit"]
+    eager_launches = [f.launches - b for f, b in zip(counters, before)]
+    assert eager_launches[:2] == [1, 1] and eager_launches[2] > 0
+    path = str(tmp_path / "tiny.pt2")
+    torch.export.save(export_forward(cfg, model, batch), path)
+    program = load_exported(path).module()
+    before = [f.launches for f in counters]
+    with torch.no_grad():
+        out = program(batch)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counters, before)] == eager_launches
+    assert (out - eager).abs().max().item() <= 1e-5 * eager.abs().max().item()

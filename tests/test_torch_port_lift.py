@@ -23,7 +23,6 @@ from occdepth_tpu.models.sfa import sfa_lift as jax_sfa_lift
 from occdepth_tpu.training.convert_torch import _map_crp, _Mapper, _nest
 from occdepth_tpu_torch.models import sfa as port_sfa
 from occdepth_tpu_torch.models.crp3d import CPMegaVoxels
-from occdepth_tpu_torch.ops import crp_matmul, flosp_gather
 from occdepth_tpu_torch.ops.crp_matmul import (
     crp_relation_matmul,
     crp_relation_matmul_reference,
@@ -154,21 +153,17 @@ def test_channels_last_map_copies_only_nchw():
     assert channels_last_map(cl).data_ptr() == cl.data_ptr()
 
 
-def test_lift_backward_is_autograd_of_the_plain_version(monkeypatch):
-    """The autograd Function's backward (the plain version recomputed and
-    differentiated) vs autograd straight through the plain version, with
-    the launch replaced by the plain forward: the same fp32 formula, so
-    exact up to 1e-6."""
-    monkeypatch.setattr(flosp_gather, "_launch_lift",
-                        lambda maps, pix, fov, res, eps:
-                        flosp_stereo_lift_reference(maps, pix, fov, res, eps))
+def test_lift_backward_is_autograd_of_the_plain_version():
+    """The registered operator's gradient (the plain version recomputed
+    and differentiated) vs autograd straight through the plain version,
+    on CPU tensors, where the operator's forward is the plain version: the
+    same fp32 formula, so exact up to 1e-6."""
     maps, pix, fov = _inputs(4, C=8)
     tpix, tfov = torch.from_numpy(pix), torch.from_numpy(fov)
     cot = torch.from_numpy(np.random.RandomState(9).randn(
         2, int(np.prod(SCENE)), 8).astype(np.float32))
     grads = []
-    for fn in (lambda m: flosp_gather._LiftFn.apply(tpix, tfov, SCALES, 1e-8,
-                                                     *m),
+    for fn in (lambda m: flosp_stereo_lift(m, tpix, tfov, SCALES),
                lambda m: flosp_stereo_lift_reference(m, tpix, tfov, SCALES)):
         leaves = [m.clone().requires_grad_(i != 1) for i, m in
                   enumerate(_torch_maps(maps, torch.float32, "nchw"))]
@@ -231,18 +226,17 @@ def test_crp_relation_matmul_forms_match_jax_per_relation(dim):
         np.testing.assert_allclose(out.numpy(), want, atol=1e-4)
 
 
-def test_crp_backward_batched_over_relations(monkeypatch):
-    """The autograd Function's backward, batched over relations (dmega
-    summed over them), vs autograd of the plain version, with the launch
-    replaced by the plain forward: fp32 products of 256 and 1024 terms in
-    another order, 1e-5 x max|ref|."""
-    monkeypatch.setattr(crp_matmul, "_launch", crp_relation_matmul_reference)
+def test_crp_backward_batched_over_relations():
+    """The registered operator's gradient formula, batched over relations
+    (dmega summed over them), vs autograd of the plain version, on CPU
+    tensors, where the operator's forward is the plain version: fp32
+    products of 256 and 1024 terms in another order, 1e-5 x max|ref|."""
     rng = np.random.RandomState(12)
     p0 = torch.from_numpy(rng.randn(2, 3, 1024, 256).astype(np.float32))
     m0 = torch.from_numpy(rng.randn(2, 256, 16).astype(np.float32))
     cot = torch.from_numpy(rng.randn(2, 3, 1024, 16).astype(np.float32))
     grads = []
-    for fn in (crp_matmul._CrpMatmulFn.apply, crp_relation_matmul_reference):
+    for fn in (crp_relation_matmul, crp_relation_matmul_reference):
         p, m = p0.clone().requires_grad_(), m0.clone().requires_grad_()
         fn(p, m).backward(cot)
         grads.append((p.grad, m.grad))

@@ -46,8 +46,12 @@ from occdepth_tpu_torch.testing import randomize_weights, tiny_kitti_config
 
 SHIPPED = [
     "semantic_kitti/multicam_flospdepth_crp_stereodepth_cascadecls",
+    "semantic_kitti/multicam_flospdepth_crp_stereodepth_cascadecls_highcap",
+    "semantic_kitti/multicam_flospdepth_crp_stereodepth_cascadecls_occluded",
+    "semantic_kitti/multicam_flosp_crp_cascadecls_highcap",
     "semantic_kitti/flospdepth",
     "NYU/multicam_flosp_crp_stereodepth_cascadecls",
+    "NYU/multicam_flosp_crp_depthgt_b7_v100",
     "tartanair/flosp_crp_cascadecls",
 ]
 

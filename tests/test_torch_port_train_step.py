@@ -28,6 +28,8 @@ within NOISE_MULT times the port's own change under that perturbation
 self-noise against float64).  A missing stop_gradient, a dropped loss term
 or a wrong layout moves gradients by far more than that noise.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 from jax.flatten_util import ravel_pytree
@@ -73,9 +75,9 @@ def _one_torch_thread():
     yield
     torch.set_num_threads(n)
 
-@pytest.fixture(scope="module")
-def jax_grad_fn():
-    cfg = jax_tiny_kitti()
+@functools.lru_cache(maxsize=None)
+def _jax_grad_fn(share_2d_backbone_gradient):
+    cfg = jax_tiny_kitti(share_2d_backbone_gradient=share_2d_backbone_gradient)
     model = JaxOccDepthModel(cfg=cfg)
 
     def loss_fn(params, batch_stats, batch):
@@ -120,22 +122,43 @@ def _numpy_tree(tree):
 
 def _port_step(cfg, model, batches):
     """One port train_step; returns (logs, grads by name, state_dict,
-    parameters before the step, completion, conf)."""
+    parameters before the step, completion, conf, backbone calls whose
+    features received a gradient)."""
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     opt = make_optimizer(model.parameters(), cfg)
-    logs, completion, conf = train_step(
-        cfg, model, opt,
-        [{k: torch.from_numpy(v) for k, v in b.items()} for b in batches],
-        progress=0.0, lr=lr_at(cfg, STEPS_PER_EPOCH, 0),
-    )
+    calls, reached = [], set()
+
+    def hook(module, inputs, feats):
+        call = len(calls)
+        calls.append(call)
+        for feat in feats.values():
+            if feat.requires_grad:
+                feat.register_hook(lambda g, call=call: reached.add(call))
+
+    handle = model.net_rgb.register_forward_hook(hook)
+    try:
+        logs, completion, conf = train_step(
+            cfg, model, opt,
+            [{k: torch.from_numpy(v) for k, v in b.items()} for b in batches],
+            progress=0.0, lr=lr_at(cfg, STEPS_PER_EPOCH, 0),
+        )
+    finally:
+        handle.remove()
     grads = {n: p.grad.clone() for n, p in model.named_parameters()}
-    return logs, grads, model.state_dict(), before, completion, conf
+    return (logs, grads, model.state_dict(), before, completion, conf,
+            (len(calls), sorted(reached)))
 
 
-@pytest.fixture(scope="module", params=[1, 2], ids=["accum1", "accum2"])
-def step_results(request, jax_grad_fn, jax_update_fn):
-    accum = request.param
-    cfg = tiny_kitti_config(dw_conv_grad="pallas")
+@pytest.fixture(scope="module", params=[(1, True), (2, True), (1, False)],
+                ids=["accum1", "accum2", "unshared_backbone_grad"])
+def step_results(request, jax_update_fn):
+    """accum1/accum2: the tiny config, one and two microbatches per step;
+    unshared_backbone_grad: `share_2d_backbone_gradient: false` (both
+    `*_highcap.yaml`), where view 1's backbone pass is differentiated too."""
+    accum, share = request.param
+    jax_grad_fn = _jax_grad_fn(share)
+    cfg = tiny_kitti_config(dw_conv_grad="pallas",
+                            share_2d_backbone_gradient=share)
     port = randomize_weights(OccDepthModel(cfg), seed=21)
     # copies: the port's step updates its tensors in place
     sd = {k: v.numpy().copy() for k, v in port.state_dict().items()}
@@ -164,14 +187,14 @@ def step_results(request, jax_grad_fn, jax_update_fn):
     # ---- port: one train_step over the same microbatches, and again
     # from rounding-sized perturbed weights (the noise yardstick) ----
     perturbed = [perturbed_copy(port, seed) for seed in range(N_PERTURB)]
-    logs, grads, after, before, completion, conf = _port_step(
+    logs, grads, after, before, completion, conf, views = _port_step(
         cfg, port, batches)
     update = {n: after[n] - before[n] for n in before}
     grads_p, update_p, stats_p = [], [], []
     stat_keys = [k for k in after if k.endswith(("running_mean",
                                                  "running_var"))]
     for m in perturbed:
-        _, g_p, after_p, before_p, _, _ = _port_step(cfg, m, batches)
+        _, g_p, after_p, before_p, _, _, _ = _port_step(cfg, m, batches)
         grads_p.append(g_p)
         update_p.append({n: after_p[n] - before_p[n] for n in before})
         stats_p.append({k: after_p[k] for k in stat_keys})
@@ -192,6 +215,7 @@ def step_results(request, jax_grad_fn, jax_update_fn):
         "lr": lr_at(cfg, STEPS_PER_EPOCH, 0),
         "stats": ({k: after[k] for k in stat_keys}, ref_after, stats_p),
         "counts": (completion, conf, batches),
+        "views": (cfg, views),
     }
 
 
@@ -263,3 +287,16 @@ def test_confusion_counts_cover_the_batches(step_results):
     n_vox = sum(b["target"].size for b in batches)
     assert int(conf.sum()) == n_vox
     assert int(completion.sum()) <= n_vox
+
+
+def test_backbone_views_receive_gradients(step_results):
+    """The backbone runs once per view and microbatch; the features of
+    view 0 always receive a gradient, those of view 1 only with
+    `share_2d_backbone_gradient: false` (under `true` view 1 runs under
+    no_grad, JAX's stop_gradient)."""
+    cfg, (n_calls, reached) = step_results["views"]
+    n_micro = len(step_results["counts"][2])
+    assert n_calls == 2 * n_micro
+    want = [c for c in range(n_calls)
+            if c % 2 == 0 or not cfg.share_2d_backbone_gradient]
+    assert reached == want, (reached, want)
