@@ -180,7 +180,19 @@ Phases, one line each:
  26. export at full width: the flagship under decoder_conv_impl=pallas
      exported on the card, saved and loaded; the loaded program launches
      the lift and K2 once and K3 ten times per forward and matches eager;
-     the export time and the loaded program's and eager's ms/frame.
+     the export time and the loaded program's and eager's ms/frame;
+ 27. data parallel: (a) the flagship (bf16, dw_conv_grad=pallas) through
+     the DDP Trainer in a one-rank NCCL group under torchrun's variables,
+     2 steps with phase 10's checks (lift and K2 once a step, K4 22 times
+     a step, no copies), ms/step, peak memory and its first-step
+     parameters against a plain train_step on the same weights and batch;
+     then side by side (b) scripts/check_ddp.py: two gloo ranks on this
+     card (one tiny-config row each, fp32) held to the one-process
+     emulation, with the kernels each rank launched, and (c)
+     scripts/check_resume_determinism.py (TartanAir toy tree,
+     deterministic: true, SIGKILL and resume) and
+     scripts/check_convergence.py (the flagship on a make_kitti_tree tree,
+     loss descent across a SIGKILL/resume splice).
 Then a JSON line of per-kernel results, the `nvidia-smi` name/power-limit
 line, and as the last line {"ok": true, "device": {...}}.  Any failure
 raises and exits non-zero; there is no CPU fallback.
@@ -783,7 +795,7 @@ def read_counts() -> dict:
 
 def fit_and_check(cfg, train_ds, val_ds, logdir, expected, tag,
                   smi: str, n_dw_expected: int = 22, steps: int = TRAIN_STEPS,
-                  k4_views: int = 1, lift_k2: int = 1) -> dict:
+                  k4_views: int = 1, lift_k2: int = 1, trainer=None) -> dict:
     """A Trainer fits `steps` steps at batch 1 on two-sample train_ds,
     validating on val_ds at each epoch end (steps 2 and 3), with the launch
     counts set to 0 just before.  Checks: every `expected` loss term
@@ -793,15 +805,15 @@ def fit_and_check(cfg, train_ds, val_ds, logdir, expected, tag,
     passes are all differentiated) with no operand copied, the fused lift
     and K2 `lift_k2` times per step and per validation forward (0 for one
     view without CRP), K1 and K3 never, val/mIoU logged, the
-    best-by-metric checkpoints kept.  Returns the trainer, its launch
-    counts, ms/step (CUDA events, mean of the steps after the first) and
-    peak memory."""
+    best-by-metric checkpoints kept.  Returns the trainer (`trainer`, or a
+    new one on `logdir`), its launch counts, ms/step (CUDA events, mean of
+    the steps after the first) and peak memory."""
     import torch
 
     from occdepth_tpu_torch.ops.dw_conv import dw_filter_grad
     from occdepth_tpu_torch.training import Trainer
 
-    trainer = Trainer(cfg, logdir)
+    trainer = trainer or Trainer(cfg, logdir)
     check(trainer.step == 0 and trainer.device.type == "cuda",
           f"{tag}: fresh trainer at step {trainer.step} on {trainer.device}")
     n_dw = sum(1 for m in trainer.model.modules()
@@ -2483,6 +2495,182 @@ def phase_export(dev, smi: str) -> dict:
             "times": times, "max_abs_err": err}
 
 
+DDP_STEPS = 2
+DDP_RESUME = ("--epochs", "4", "--kill-step", "5")  # 2 steps an epoch
+DDP_CONVERGENCE = ("--epochs", "2", "--kill-step", "25", "--tail", "10")
+# the resume check compares runs A and B bitwise (its default): the
+# TartanAir path's one op without a deterministic CUDA implementation,
+# avg_pool3d's backward, pools non-overlapping windows (one atomic add per
+# input element)
+
+
+def tool_summary(proc, tag: str) -> dict:
+    """Wait for a check script's subprocess; its last line's JSON."""
+    out, err = proc.communicate(timeout=400)
+    lines = out.strip().splitlines()
+    check(proc.returncode == 0 and bool(lines),
+          f"{tag}: exit {proc.returncode}\n{out[-3000:]}\n{err[-3000:]}")
+    return json.loads(lines[-1])
+
+
+def phase_ddp(dev, smi: str) -> dict:
+    """27. Data parallel.  (a) The flagship (bf16, dw_conv_grad=pallas)
+    through the DDP Trainer in a one-rank NCCL group opened under
+    torchrun's variables: 2 steps at batch 1 with phase 10's checks (the
+    lift and K2 once a step, K4 22 times a step, no copies), ms/step and
+    peak memory, and its first-step parameters against a plain train_step
+    on a copy of the same initial weights and the same first batch.  Then,
+    side by side, (b) check_ddp: two gloo ranks on this card held to the
+    one-process emulation (the cross-rank BN, the running and batch
+    gradients, K = 2 accumulation, Trainer.fit and validate, the kernels
+    launched on each rank); (c) check_resume_determinism on the TartanAir
+    toy tree (deterministic: true, 4 epochs, SIGKILL at step 5) and
+    check_convergence on a make_kitti_tree flagship tree (2 epochs of 20
+    steps, SIGKILL at step 25)."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from occdepth_tpu_torch.config import default_config_path, load_config
+    from occdepth_tpu_torch.data.kitti import Loader
+    from occdepth_tpu_torch.parallel import ddp
+    from occdepth_tpu_torch.testing import synthetic_dataset
+    from occdepth_tpu_torch.training import Trainer
+    from occdepth_tpu_torch.training.optim import lr_at, make_optimizer
+    from occdepth_tpu_torch.training.step import train_step
+    from occdepth_tpu_torch.training.trainer import strip_metadata
+
+    t_phase = time.perf_counter()
+    cfg = load_config(default_config_path(FLAGSHIP), overrides={
+        "compute_dtype": "bfloat16", "dw_conv_grad": "pallas",
+        "log_every_n_steps": 1})
+    train_ds = synthetic_dataset(cfg, 2, seed=0)
+    val_ds = synthetic_dataset(cfg, 1, seed=1)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
+    os.environ.update(env)
+    logdir = tempfile.mkdtemp(prefix="occdepth_ddp_")
+    try:
+        trainer = Trainer(cfg, logdir)
+        check(isinstance(trainer.net,
+                         torch.nn.parallel.DistributedDataParallel)
+              and trainer.world == 1 and dist.get_backend() == "nccl"
+              and trainer.device == torch.device("cuda", 0),
+              f"ddp: {type(trainer.net).__name__} world {trainer.world} "
+              f"on {trainer.device}")
+        # two plain steps, each on a copy of the initial weights and fit's
+        # first batch: the second is the run-to-run noise of one step (the
+        # lift's backward sums in atomics' order, cuDNN picks algorithms)
+        first = next(iter(Loader(train_ds, 1, shuffle=True, num_workers=0)))
+        plain = []
+        for _ in range(2):
+            ref = copy.deepcopy(trainer.model)
+            train_step(cfg, ref, make_optimizer(ref.parameters(), cfg),
+                       [trainer._to_device(strip_metadata(first))], 0.0,
+                       lr_at(cfg, len(train_ds), 0))
+            plain.append(dict(ref.named_parameters()))
+            del ref
+        first_step = {}
+
+        def snapshot(opt, args, kwargs):
+            if not first_step:
+                first_step.update({n: p.detach().clone() for n, p in
+                                   trainer.model.named_parameters()})
+
+        hook = trainer.optimizer.register_step_post_hook(snapshot)
+        fit = fit_and_check(cfg, train_ds, val_ds, logdir, {
+            "train/loss", "train/loss_relation_ce_super", "train/loss_ssc",
+            "train/loss_occ", "train/loss_depth", "train/loss_sem_scal",
+            "train/loss_geo_scal", "train/loss_frustums"}, "ddp_world1", smi,
+            steps=DDP_STEPS, trainer=trainer)
+        hook.remove()
+
+        def differ(a, b):
+            d = [(a[n].detach() - b[n].detach()).abs() for n in a]
+            return (max(float(x.max()) for x in d),
+                    sum(int((x > 0).sum()) for x in d))
+
+        max_diff, n_diff = differ(plain[0], first_step)
+        noise_max, noise_n = differ(plain[0], plain[1])
+        lr = lr_at(cfg, len(train_ds), 0)
+        log("ddp_first_step", bitwise=n_diff == 0,
+            max_abs_diff=f"{max_diff:.3e}", elements_differing=n_diff,
+            plain_vs_plain_max_abs_diff=f"{noise_max:.3e}",
+            plain_vs_plain_elements_differing=noise_n,
+            elements=sum(p.numel() for p in first_step.values()), lr=lr,
+            bound="2 lr (AdamW's first update is ~lr sign(g): an element "
+                  "whose gradient sits at fp32 noise may flip)")
+        check(max_diff <= 2.0 * lr * (1 + 1e-3),
+              f"ddp: first-step parameters differ by {max_diff}")
+        fit["first_step"] = {"max_abs_diff": max_diff, "differing": n_diff,
+                             "plain_max_abs_diff": noise_max,
+                             "plain_differing": noise_n}
+        del fit["trainer"], fit["before"], trainer, plain, first_step
+    finally:
+        ddp.shutdown()
+        for k in env:
+            os.environ.pop(k, None)
+        shutil.rmtree(logdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    world1_s = time.perf_counter() - t_phase
+
+    # ---- (b) and (c): subprocesses side by side ----
+    tmp = tempfile.mkdtemp(prefix="occdepth_ddp_tools_")
+    t0 = time.perf_counter()
+    try:
+        def start(module, *args):
+            return subprocess.Popen(
+                [sys.executable, "-m", f"occdepth_tpu_torch.scripts.{module}",
+                 *args], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)
+
+        procs = {
+            "check_ddp": start("check_ddp", "--device", "cuda:0",
+                               "--backend", "gloo", "--out",
+                               os.path.join(tmp, "ddp")),
+            "resume": start("check_resume_determinism", "--base",
+                            os.path.join(tmp, "resume"), *DDP_RESUME),
+            "convergence": start("check_convergence", "--base",
+                                 os.path.join(tmp, "convergence"),
+                                 *DDP_CONVERGENCE),
+        }
+        try:
+            res = {tag: tool_summary(p, tag) for tag, p in procs.items()}
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    tools_s = time.perf_counter() - t0
+    rep = res["check_ddp"]
+    log("ddp_two_ranks", ok=rep["ok"], device=rep["device"],
+        bn_max_rel=f"{rep['bn']['max_rel']:.3e}",
+        running_max_rel=f"{rep['running']['max_rel']:.3e}",
+        running_bound=rep["running"]["bound"],
+        batch_worst_ratio=f"{rep['batch']['worst_ratio']:.3f}",
+        batch_noise_only_leaves=rep["batch"]["noise_only_leaves"],
+        accum2_max_rel=f"{rep['accum2']['max_rel']:.3e}",
+        eval_conf_flips=rep["fit"]["conf_flips"],
+        near_ties=rep["fit"]["near_ties"],
+        launches_per_rank=rep["fit"]["launches"])
+    check(rep["ok"] and rep["fit"].get("launches_ok"),
+          f"check_ddp on the card: {json.dumps(rep)[:3000]}")
+    for tag in ("resume", "convergence"):
+        log(f"ddp_{tag}", **{k: v for k, v in res[tag].items()
+                             if k not in ("base", "config", "tree")})
+        check(res[tag]["ok"], f"{tag}: {res[tag]}")
+    log("ddp_phase", world1_s=f"{world1_s:.1f}", tools_s=f"{tools_s:.1f}",
+        seconds=f"{time.perf_counter() - t_phase:.1f}")
+    return dict(fit, two_ranks=rep, resume=res["resume"],
+                convergence=res["convergence"])
+
+
 def main() -> None:
     import torch
 
@@ -2638,6 +2826,8 @@ def main() -> None:
     # ---- 24, 26. the output CLIs and export at full width ----
     outputs = phase_outputs(dev, smi)
     exported = phase_export(dev, smi)
+    # ---- 27. data parallel: DDP world 1, two gloo ranks, the tools ----
+    parallel = phase_ddp(dev, smi)
 
     def by_path(name):
         paths = {"serve": launches[name], "train": train["launches"][name],
@@ -2656,7 +2846,8 @@ def main() -> None:
                  "outputs": sum(outputs["launches"][t][name]
                                 for t in ("generate_output", "submission"))
                  + nyu_outputs["launches"][name],
-                 "export": exported["launches"][name]}
+                 "export": exported["launches"][name],
+                 "ddp": parallel["launches"][name]}
         return {"launches": sum(paths.values()), "launches_by_path": paths}
 
     def at_ta(r, keys=("max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -262,16 +262,30 @@ class Loader:
     (kitti_dm.py:8-143) with the JAX package's order: shuffling per epoch
     from RandomState(seed + epoch), fixed batch size (drops the last
     partial batch in train), background prefetch.
+
+    With `world` > 1 (data parallel, `parallel/ddp.py`) `batch_size` is
+    the global batch and rank `rank` loads and yields only its contiguous
+    `batch_size // world` rows of each global batch, so the union of the
+    ranks' batches is the one-process batch in the one-process order.  A
+    ragged last global batch (drop_last=False) is padded to full size with
+    its first sample before the split, and each rank's rows then carry a
+    `sample_valid` (rows,) bool mask; every rank sees the same number of
+    batches.
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool,
-                 seed: int = 42, num_workers: int = 2, drop_last=None):
+                 seed: int = 42, num_workers: int = 2, drop_last=None,
+                 rank: int = 0, world: int = 1):
+        if batch_size % world:
+            raise ValueError(f"global batch {batch_size} not divisible by "
+                             f"the world's {world} ranks")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.num_workers = num_workers
         self.drop_last = shuffle if drop_last is None else drop_last
+        self.rank, self.world = rank, world
         self.epoch = 0
 
     def __len__(self):
@@ -289,7 +303,17 @@ class Loader:
 
         def make(bi):
             idxs = order[bi * self.batch_size: (bi + 1) * self.batch_size]
-            return collate([self.dataset[int(i)] for i in idxs])
+            if self.world == 1:
+                return collate([self.dataset[int(i)] for i in idxs])
+            valid = np.arange(self.batch_size) < len(idxs)
+            idxs = np.resize(idxs, self.batch_size)
+            idxs[~valid] = idxs[0]
+            per = self.batch_size // self.world
+            rows = slice(self.rank * per, (self.rank + 1) * per)
+            batch = collate([self.dataset[int(i)] for i in idxs[rows]])
+            if not valid.all():
+                batch["sample_valid"] = valid[rows]
+            return batch
 
         if self.num_workers <= 0:
             for bi in range(n_batches):

@@ -25,6 +25,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -70,6 +71,50 @@ class Linear(nn.Linear):
         return F.linear(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype))
 
 
+def _channel_view(v: torch.Tensor, dim: int) -> torch.Tensor:
+    return v.reshape((1, -1) + (1,) * (dim - 2))
+
+
+def _global_means(sums: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(k, C) per-channel sums over this rank's `x` -> the means over every
+    rank's rows: one all-reduce of the sums and the element count."""
+    n = torch.tensor([x.numel() // x.shape[1]], dtype=sums.dtype,
+                     device=sums.device)
+    flat = torch.cat([sums.reshape(-1), n])
+    dist.all_reduce(flat)
+    return flat[:-1].reshape(sums.shape) / flat[-1]
+
+
+class _CrossRankBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm over the global batch of all ranks, given the
+    global mean and inverse std (`SyncBatchNorm`'s backward, with one
+    all-reduce of the two per-channel sums of the upstream gradient).
+    Computes in float32 and returns the input's dtype; the weight and bias
+    gradients are this rank's share, which DDP averages with the rest."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, mean, invstd):
+        xhat = (x.float() - _channel_view(mean, x.dim())) * _channel_view(
+            invstd, x.dim())
+        ctx.save_for_backward(x, weight, mean, invstd)
+        return (xhat * _channel_view(weight, x.dim())
+                + _channel_view(bias, x.dim())).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, weight, mean, invstd = ctx.saved_tensors
+        dims = [0] + list(range(2, x.dim()))
+        gy = gy.float()
+        xmu = x.float() - _channel_view(mean, x.dim())
+        sums = torch.stack([gy.sum(dims), (gy * xmu).sum(dims)])
+        grad_weight, grad_bias = sums[1] * invstd, sums[0]
+        mean_dy, mean_dy_xmu = _global_means(sums, x)
+        gx = (gy - _channel_view(mean_dy, x.dim())
+              - xmu * _channel_view(invstd.square() * mean_dy_xmu, x.dim())
+              ) * _channel_view(invstd * weight, x.dim())
+        return gx.to(x.dtype), grad_weight, grad_bias, None, None
+
+
 class _TrainStatsMixin:
     """Train-mode forward of the JAX package's `_BNCore`.
 
@@ -79,20 +124,38 @@ class _TrainStatsMixin:
     (1 - m) * running + m * stat with the biased one-pass variance
     max(0, E[x^2] - E[x]^2), computed in float32 as the JAX package does.
     Eval mode is stock `nn.BatchNorm`.
+
+    In a process group of more than one rank (`parallel/ddp.py`) the batch
+    is the global one, as under the reference's `sync_batchnorm=True` and
+    the JAX package's mesh: one all-reduce of the float32 [Σx, Σx², n] per
+    channel gives the statistics (the same one-pass variance), and one of
+    the upstream gradient's two per-channel sums serves the backward
+    (`_CrossRankBatchNorm`).
     """
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        cross_rank = dist.is_available() and dist.is_initialized() and (
+            dist.get_world_size() > 1)
         with torch.no_grad():
             dims = [0] + list(range(2, x.dim()))
             xf = x.float()
-            mean = xf.mean(dims)
-            var = (xf.square().mean(dims) - mean.square()).clamp_(min=0.0)
+            if cross_rank:
+                mean, ex2 = _global_means(
+                    torch.stack([xf.sum(dims), xf.square().sum(dims)]), x)
+            else:
+                mean = xf.mean(dims)
+                ex2 = xf.square().mean(dims)
+            var = (ex2 - mean.square()).clamp_(min=0.0)
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(m * mean)
             self.running_var.mul_(1.0 - m).add_(m * var)
             self.num_batches_tracked.add_(1)
+        if cross_rank:
+            return _CrossRankBatchNorm.apply(
+                x, self.weight, self.bias, mean,
+                torch.rsqrt(var + self.eps))
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps)
 

@@ -115,6 +115,19 @@ class OccDepthModel(nn.Module):
                 cfg.dataset, return_depth=cfg.with_depth_gt,
             )
 
+    def unused_parameter_names(self) -> list:
+        """Parameters that no output of this config depends on: the
+        decoder's `resize_output_1_{s}` heads of the scales that neither
+        the lift (`project_res`) nor the OAD depth branch reads.  They get
+        no gradient in any step, so DDP leaves them out of its buckets."""
+        cfg = self.cfg
+        read = set(cfg.project_res)
+        if cfg.trans_2d_to_3d == "flosp_depth":
+            read.add(cfg.flosp_depth_conf.downsample_factor)
+        return [f"net_rgb.decoder.resize_output_1_{s}.{p}"
+                for s in self.net_rgb.decoder.scales if s not in read
+                for p in ("weight", "bias")]
+
     def backbone_features(self, img: torch.Tensor) -> Dict[str, torch.Tensor]:
         """(B, V, H, W, 3) views -> {'1_s': (B, V, C, h, w)}."""
         B, V, H, W, _ = img.shape

@@ -11,7 +11,9 @@ peak memory, which the reference prints too:
 `--ckpt NAME` restores `<logdir>/<exp_name>/checkpoints/NAME.pt` (`last`,
 `best_val_mIoU`, ...); `--torch-ckpt` loads a reference PyTorch `.ckpt`
 or state_dict instead.  The device is CUDA unless `--device cpu` is given;
-without a GPU the CUDA default raises.
+without a GPU the CUDA default raises.  Under torchrun (as the train CLI)
+each process evaluates its rows of every global batch and rank 0 prints
+the one-process table from the counts summed over the ranks.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import torch
 from occdepth_tpu_torch.config import OccDepthConfig, load_config, parse_overrides
 from occdepth_tpu_torch.data.kitti import Loader
 from occdepth_tpu_torch.data.params import class_names_for
+from occdepth_tpu_torch.parallel import ddp
 from occdepth_tpu_torch.training.trainer import Trainer, make_datasets
 from occdepth_tpu_torch.weights import load_reference_checkpoint
 
@@ -58,7 +61,8 @@ def evaluate(cfg: OccDepthConfig, ckpt: str = "last",
         trainer.model.load_state_dict(state["model"])
     _, val_ds = make_datasets(cfg)
     val_loader = Loader(val_ds, trainer.global_batch, shuffle=False,
-                        drop_last=False)
+                        drop_last=False, rank=trainer.rank,
+                        world=trainer.world)
     return trainer.validate(val_loader)
 
 
@@ -77,6 +81,10 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     cfg = load_config(args.config, parse_overrides(args.overrides))
     stats = evaluate(cfg, args.ckpt, args.torch_ckpt, args.device)
+    rank = ddp.rank()
+    ddp.shutdown()
+    if rank:
+        return
     print_stats(stats, class_names_for(cfg.dataset))
     if "ms_per_frame" in stats:
         print(f"eval: {stats['n_frames']} frames, "

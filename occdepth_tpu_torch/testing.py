@@ -190,6 +190,22 @@ def randomize_weights(model: nn.Module, seed: int) -> nn.Module:
     return model
 
 
+def freeze_batchnorm(model: nn.Module) -> nn.Module:
+    """Put every BatchNorm on its running statistics for good: its
+    `train()` keeps it in eval mode, so a train step (which calls
+    `model.train()`) normalises with the running statistics.  With batch
+    statistics the tiny configs' fp32 gradients are chaotic; with these
+    they are well conditioned, which tight gradient checks need."""
+    def stay_eval(self, mode=True):
+        return nn.Module.train(self, False)
+
+    for m in model.modules():
+        if isinstance(m, nn.modules.batchnorm._BatchNorm):
+            m.train = stay_eval.__get__(m)
+            m.eval()
+    return model
+
+
 @torch.no_grad()
 def perturbed_copy(model: nn.Module, seed: int,
                    rel: float = 1e-7) -> nn.Module:

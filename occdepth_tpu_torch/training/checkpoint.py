@@ -5,7 +5,9 @@ Counterpart of `occdepth_tpu/training/checkpoint.py::CheckpointManager`
 (the reference's ModelCheckpoint pair, top-1 val/mIoU and top-1 val/IoU,
 plus save_last): `last.pt`, `best_val_mIoU.pt`, `best_val_IoU.pt` and a
 `meta.json` holding the best values and the last step, so a restarted
-run keeps comparing against the best seen so far.
+run keeps comparing against the best seen so far.  Under data parallelism
+rank 0 saves (the Trainer then waits at a barrier) and every rank restores
+onto its own device with `map_location`.
 """
 from __future__ import annotations
 

@@ -2,7 +2,8 @@
 
 Counterpart of `occdepth_tpu/training/logging.py::MetricsLogger`, without
 its optional TensorBoard writer: one record per call, {"step", "time",
-<prefix><name>: float, ...}, appended and closed at once.
+<prefix><name>: float, ...}, appended and closed at once.  Under data
+parallelism only rank 0's logger writes (`writer=False` elsewhere).
 """
 from __future__ import annotations
 
@@ -13,11 +14,15 @@ from typing import Dict
 
 
 class MetricsLogger:
-    def __init__(self, logdir: str, name: str = "metrics"):
+    def __init__(self, logdir: str, name: str = "metrics",
+                 writer: bool = True):
         os.makedirs(logdir, exist_ok=True)
         self.path = os.path.join(logdir, f"{name}.jsonl")
+        self.writer = writer
 
     def log(self, step: int, metrics: Dict[str, float], prefix: str = ""):
+        if not self.writer:
+            return
         record = {"step": int(step), "time": time.time()}
         for k, v in metrics.items():
             try:

@@ -11,6 +11,7 @@ Numerics follow the port's explicit-cast rule (`models/layers.py`): no
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -115,16 +116,23 @@ def train_step(
     then the summed gradient is clipped by global norm and one AdamW
     update at `lr` is applied.  Returns (mean logs over the microbatches,
     completion (3,), conf (C, C)), all on the device.
+
+    `model` may be a `DistributedDataParallel`: its losses are this rank's
+    (the reference's Lightning DDP), the first K - 1 backwards run under
+    `no_sync()`, and the last all-reduces the summed gradients, which DDP
+    averages over the ranks before the clip.
     """
     model.train()
     optimizer.zero_grad(set_to_none=True)
     K = len(micro_batches)
     logs_sum: Dict[str, torch.Tensor] = {}
     completion = conf = None
-    for mb in micro_batches:
-        out = model(mb)
-        loss, logs = compute_losses(cfg, out, mb, progress)
-        (loss / K).backward()
+    for i, mb in enumerate(micro_batches):
+        with (model.no_sync() if i < K - 1 and hasattr(model, "no_sync")
+              else contextlib.nullcontext()):
+            out = model(mb)
+            loss, logs = compute_losses(cfg, out, mb, progress)
+            (loss / K).backward()
         with torch.no_grad():
             comp_k, conf_k = confusion_update(
                 out["ssc_logit"].argmax(dim=-1), mb["target"], cfg.n_classes)
@@ -133,17 +141,29 @@ def train_step(
             for k, v in logs.items():
                 v = v.detach()
                 logs_sum[k] = v if k not in logs_sum else logs_sum[k] + v
+    apply_update(cfg, optimizer, lr)
+    return {k: v / K for k, v in logs_sum.items()}, completion, conf
 
+
+def apply_update(cfg: OccDepthConfig, optimizer: torch.optim.Optimizer,
+                 lr: float) -> None:
+    """Clip the gradients by global norm and take one AdamW step at `lr`.
+
+    A parameter without a gradient gets zeros, as optax updates (decays)
+    every parameter.  Under DDP this runs after the all-reduce: the only
+    parameters left without a gradient are those no output of the config
+    depends on (`OccDepthModel.unused_parameter_names`), which DDP does
+    not track, so every rank decays them alike.
+    """
     params = [p for g in optimizer.param_groups for p in g["params"]]
     for p in params:
-        if p.grad is None:  # optax updates (decays) every parameter
+        if p.grad is None:
             p.grad = torch.zeros_like(p)
     if cfg.gradient_clip_val and cfg.gradient_clip_val > 0:
         clip_by_global_norm_([p.grad for p in params], cfg.gradient_clip_val)
     for group in optimizer.param_groups:
         group["lr"] = lr
     optimizer.step()
-    return {k: v / K for k, v in logs_sum.items()}, completion, conf
 
 
 def eval_step(

@@ -1,7 +1,8 @@
 """Training loop: datasets -> train steps -> validation, metrics and
 checkpoints.
 
-Counterpart of `occdepth_tpu/training/trainer.py::Trainer` on one device.
+Counterpart of `occdepth_tpu/training/trainer.py::Trainer`, on one device
+or, under `torchrun`, on one device per process (`parallel/ddp.py`).
 `Trainer(cfg, logdir, device=None).fit(train_ds, val_ds, max_steps)` takes
 map-style datasets of per-sample dicts (the disk datasets of
 `make_datasets(cfg)` when none are given), trains epoch by epoch on a
@@ -23,6 +24,7 @@ from occdepth_tpu_torch.data.kitti import Loader
 from occdepth_tpu_torch.data.params import class_names_for
 from occdepth_tpu_torch.losses.metrics import SSCMetrics
 from occdepth_tpu_torch.models import OccDepthModel
+from occdepth_tpu_torch.parallel import ddp
 from occdepth_tpu_torch.training.checkpoint import CheckpointManager
 from occdepth_tpu_torch.training.logging import MetricsLogger
 from occdepth_tpu_torch.training.optim import lr_at, make_optimizer
@@ -84,30 +86,70 @@ def strip_metadata(batch: Dict) -> Dict:
     return {k: v for k, v in batch.items() if k not in ("frame_id", "sequence")}
 
 
+def use_deterministic_algorithms() -> None:
+    """The `deterministic: true` config key (the reference hands it to
+    Lightning): deterministic cuDNN, no autotuning, cuBLAS's fixed
+    workspace (effective for cuBLAS handles made after this call, so the
+    train CLI calls it before any CUDA work) and
+    `torch.use_deterministic_algorithms` with `warn_only=True`: an op
+    without a deterministic CUDA implementation warns instead of raising.
+    On TartanAir's train path that is `avg_pool3d`'s backward alone (the
+    3D UNet's shortcut pools, whose windows do not overlap: one atomic
+    add per element), and two runs are bitwise equal on the card; OAD's
+    and NYU's `F.grid_sample` backward is another such op.
+    `scripts/check_resume_determinism.py` lists the ops that warned in a
+    run and the largest difference left.  The CPU paths are bitwise
+    repeatable."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
 class Trainer:
-    """Trains and validates `OccDepthModel(cfg)` on one device.
+    """Trains and validates `OccDepthModel(cfg)` on one device, or on one
+    device per rank under torchrun.
 
     `device=None` means CUDA; without a GPU that raises unless the caller
     passes `device="cpu"`.  The model is initialised with PyTorch's default
     initialisers from INIT_SEED, unless a `last` checkpoint exists under
     the run directory, which is then restored (params, BN statistics,
-    optimizer state, step).  The batch size is cfg.batch_size_per_gpu.
+    optimizer state, step).  The global batch is cfg.batch_size_per_gpu
+    times the world size.
+
+    Under torchrun's environment the Trainer joins the process group
+    (`ddp.init_from_env`: NCCL on `cuda:LOCAL_RANK`, gloo on the CPU) and
+    trains `self.net`, the model wrapped in `DistributedDataParallel`
+    (buffers not broadcast: the cross-rank BatchNorm keeps the running
+    statistics equal); `self.model` stays the bare module.  Each rank
+    loads its rows of every global batch, computes its own losses (the
+    reference's Lightning DDP) and holds the same parameters; validation
+    counts, losses and the logged train losses are reduced over the ranks,
+    and rank 0 alone writes metrics.jsonl and the checkpoints.
     """
 
     def __init__(self, cfg: OccDepthConfig, logdir: Optional[str] = None,
                  device=None):
-        if device is None:
+        rank_device = ddp.init_from_env(device)
+        if rank_device is not None:
+            device = rank_device
+        elif device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError("Trainer: no CUDA device (pass "
                                    "device='cpu' to train on the CPU)")
             device = "cuda"
+        if cfg.deterministic:
+            use_deterministic_algorithms()
         self.cfg = cfg
         self.device = torch.device(device)
+        self.rank, self.world = ddp.rank(), ddp.world()
+        ddp.check_slices(cfg.n_slices, self.world)
         self.logdir = os.path.join(logdir or cfg.logdir, exp_name(cfg))
         os.makedirs(self.logdir, exist_ok=True)
-        self.global_batch = cfg.batch_size_per_gpu
+        self.global_batch = cfg.batch_size_per_gpu * self.world
         self.class_names = class_names_for(cfg.dataset)
-        self.metrics_logger = MetricsLogger(self.logdir)
+        self.metrics_logger = MetricsLogger(self.logdir,
+                                            writer=self.rank == 0)
         self.ckpt = CheckpointManager(os.path.join(self.logdir, "checkpoints"))
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(INIT_SEED)
@@ -122,6 +164,8 @@ class Trainer:
             self.optimizer.load_state_dict(state["optimizer"])
             self.step = int(state["step"])
             print(f"resumed from step {self.step}")
+        self.net = ddp.wrap(self.model, self.device) if ddp.active() else (
+            self.model)
 
     def _to_device(self, batch: Dict) -> Dict[str, torch.Tensor]:
         return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
@@ -154,9 +198,11 @@ class Trainer:
                     f"{cfg.data_preprocess_root!r}")
         workers = max(1, cfg.num_workers_per_gpu)
         train_loader = Loader(train_ds, self.global_batch, shuffle=True,
-                              num_workers=workers)
+                              num_workers=workers, rank=self.rank,
+                              world=self.world)
         val_loader = Loader(val_ds, self.global_batch, shuffle=False,
-                            drop_last=False, num_workers=workers)
+                            drop_last=False, num_workers=workers,
+                            rank=self.rank, world=self.world)
         accum = max(1, cfg.accumulate_grad_batches)
         steps_per_epoch = max(1, len(train_loader) // accum)
         total_batches = nominal_total_batches(steps_per_epoch)
@@ -184,7 +230,7 @@ class Trainer:
                           for _ in range(2)]
                     ev[0].record()
                 logs, completion, conf = train_step(
-                    cfg, self.model, self.optimizer, micro,
+                    cfg, self.net, self.optimizer, micro,
                     min(1.0, self.step / total_batches),
                     lr_at(cfg, steps_per_epoch, self.step),
                 )
@@ -196,7 +242,7 @@ class Trainer:
                     self.step_ms.append(ev[0].elapsed_time(ev[1]))
                 self.step += 1
                 if self.step % max(1, cfg.log_every_n_steps) == 0:
-                    logs = {k: float(v) for k, v in logs.items()}
+                    logs = self._mean_over_ranks(logs)
                     logs["steps_per_sec"] = (self.step - start_step) / max(
                         1e-9, time.time() - t_start)
                     logs["lr"] = lr_at(cfg, steps_per_epoch, self.step)
@@ -205,6 +251,10 @@ class Trainer:
                     break
 
             val_stats = self.validate(val_loader)
+            train_metrics.completion = ddp.all_reduce_sum(
+                train_metrics.completion, self.device)
+            train_metrics.conf = ddp.all_reduce_sum(train_metrics.conf,
+                                                    self.device)
             stats = train_metrics.get_stats()
             epoch_logs = {
                 "train/mIoU": stats["iou_ssc_mean"],
@@ -221,11 +271,22 @@ class Trainer:
                 epoch_logs[f"val/{k}"] = v
             self.metrics_logger.log(self.step, epoch_logs)
             train_metrics.reset()
-            self.ckpt.save(self._state(), self.step, {
-                "val/mIoU": val_stats["iou_ssc_mean"],
-                "val/IoU": val_stats["iou"],
-            })
+            if self.rank == 0:
+                self.ckpt.save(self._state(), self.step, {
+                    "val/mIoU": val_stats["iou_ssc_mean"],
+                    "val/IoU": val_stats["iou"],
+                })
+            ddp.barrier()
         return self
+
+    def _mean_over_ranks(self, logs: Dict[str, torch.Tensor]
+                         ) -> Dict[str, float]:
+        """The logged train losses, averaged over the ranks (one
+        all-reduce, on logging steps only)."""
+        names = sorted(logs)
+        vals = torch.stack([logs[k].float() for k in names])
+        vals = ddp.all_reduce_sum(vals) / self.world
+        return dict(zip(names, vals.tolist()))
 
     def validate(self, val_loader) -> Dict:
         """Full-val metrics and mean val losses, with the model in eval
@@ -237,23 +298,30 @@ class Trainer:
         batches only (padding would bias the mean).  Besides SSCMetrics'
         stats the result holds the summed `completion` and `conf` counts,
         `n_frames` (the rows counted) and, on CUDA, `ms_per_frame` (CUDA
-        events around each eval step, over the counted rows).
+        events around each eval step, over this rank's counted rows).
+
+        Under DDP each rank evaluates its rows of every global batch (the
+        rank's Loader pads a ragged one and marks it with `sample_valid`);
+        the counts, frames and loss sums are then summed over the ranks,
+        so every rank returns the one-process table.
         """
         metrics = SSCMetrics(self.cfg.n_classes)
-        gb = self.global_batch
+        rows = self.global_batch // self.world
         loss_sums: Dict[str, float] = {}
         n_loss_batches = n_frames = 0
         device_ms = 0.0
         on_cuda = self.device.type == "cuda"
         for batch in val_loader:
             batch = strip_metadata(batch)
-            bs = next(iter(batch.values())).shape[0]
-            valid = np.ones((gb,), bool)
-            if bs < gb:
-                valid[bs:] = False
-                batch = {k: np.concatenate([v] + [v[:1]] * (gb - bs))
-                         for k, v in batch.items()}
-            batch["sample_valid"] = valid
+            full = "sample_valid" not in batch  # else padded by the Loader
+            if full:
+                bs = next(iter(batch.values())).shape[0]
+                full = bs == rows
+                if not full:
+                    batch = {k: np.concatenate([v] + [v[:1]] * (rows - bs))
+                             for k, v in batch.items()}
+                batch["sample_valid"] = np.arange(rows) < bs
+            valid = batch["sample_valid"]
             batch = self._to_device(batch)
             if on_cuda:
                 ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -264,16 +332,27 @@ class Trainer:
             metrics.merge(completion, conf)  # waits for the step
             if on_cuda:
                 device_ms += ev[0].elapsed_time(ev[1])
-            n_frames += min(bs, gb)
-            if bs == gb:
+            n_frames += int(valid.sum())
+            if full:
                 n_loss_batches += 1
                 for k, v in logs.items():
                     loss_sums[k] = loss_sums.get(k, 0.0) + float(v)
+        rank_frames = n_frames
+        if self.world > 1:
+            metrics.completion = ddp.all_reduce_sum(metrics.completion,
+                                                    self.device)
+            metrics.conf = ddp.all_reduce_sum(metrics.conf, self.device)
+            names = sorted(loss_sums)
+            sums = ddp.all_reduce_sum(np.array(
+                [n_frames, n_loss_batches] + [loss_sums[k] for k in names],
+                np.float64), self.device)
+            n_frames, n_loss_batches = int(sums[0]), int(sums[1])
+            loss_sums = dict(zip(names, sums[2:].tolist()))
         stats = metrics.get_stats()
         stats.update(completion=metrics.completion.copy(),
                      conf=metrics.conf.copy(), n_frames=n_frames)
-        if on_cuda and n_frames:
-            stats["ms_per_frame"] = device_ms / n_frames
+        if on_cuda and rank_frames:
+            stats["ms_per_frame"] = device_ms / rank_frames
         if n_loss_batches:
             stats["losses"] = {k: v / n_loss_batches
                                for k, v in loss_sums.items()}

@@ -9,9 +9,11 @@ against the JAX model on one seeded weight set (port -> `convert_state_dict`
 JAX dataset on the JAX toy tree; the pose helpers; and the train and eval
 CLIs on the CPU with JAX blocked.
 """
+import glob
 import json
 import os
 import pickle
+import shutil
 import subprocess
 import sys
 import textwrap
@@ -82,12 +84,10 @@ LOSS_RTOL = 1e-4  # the train step's bound (test_torch_port_train_step.py)
 # own change under that perturbation exceeds it, within NOISE_MULT times
 # that change (test_torch_port_train_step.py's rule for gradients).
 NOISE_MULT, N_PERTURB = 4.0, 3
-# the shipped TartanAir YAML cut to the tiny config's sizes
-TINY_TA_OVERRIDES = [
-    "full_scene_size=[16,8,16]", "scene_size_m=[4.8,2.4,4.8]",
-    "voxel_size_m=0.3", "feature=16", "feature_2d_oc=16", "frustum_size=2",
-    "project_1_8=false", "compute_dtype=float32", "num_workers_per_gpu=0",
-    "max_epochs=1", "log_every_n_steps=1"]
+# the CLI runs: check_resume_determinism's tiny sizes, with the b0
+# backbone (b3 at 480x640 takes ~16 s a CPU train step on one thread)
+RESUME_OVERRIDES = ["backbone_2d_name=tf_efficientnet_b0_ns"]
+BLOCKED = ("jax", "flax", "jaxlib", "optax", "occdepth_tpu")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -356,32 +356,39 @@ def test_quat_to_se3_and_read_poses_match_jax(tmp_path):
 
 
 @pytest.fixture(scope="module", autouse=True)
-def cli_proc(toy_tree, tmp_path_factory):
-    """The train CLI (2 steps, then a rerun) and the eval CLI on the toy
-    tree at the tiny sizes, on the CPU, with JAX and the JAX package
-    unimportable, printing a JSON report of what they did.  It starts with
-    the module, in a one-thread process beside the JAX compiles."""
-    logdir = str(tmp_path_factory.mktemp("ta_logdir"))
+def cli_proc(tmp_path_factory):
+    """The port's kill/resume determinism check (`check_resume_determinism`:
+    the train CLI trains run A 2 epochs straight through and, beside it,
+    run B until step 2, where B is SIGKILLed and relaunched to resume) on
+    the toy tree of one train and one val frame at the tiny sizes with the
+    b0 backbone, then the eval CLI on run A's `last`, on the CPU, with
+    JAX and the JAX package unimportable in every process, printing a
+    JSON report.  It starts with the module, in one-thread processes
+    beside the JAX compiles."""
+    base = str(tmp_path_factory.mktemp("ta_resume"))
+    blocked = tmp_path_factory.mktemp("jax_blocked")
+    for name in BLOCKED:
+        (blocked / f"{name}.py").write_text(
+            f"raise ImportError('{name} is blocked in this test')\n")
     code = textwrap.dedent("""
         import contextlib, io, json, sys
-        for name in ("jax", "flax", "jaxlib", "optax", "occdepth_tpu"):
-            sys.modules[name] = None
+        from occdepth_tpu_torch.config import default_config_path
+        from occdepth_tpu_torch.scripts import check_resume_determinism as rd
         from occdepth_tpu_torch.scripts import eval as eval_cli
-        from occdepth_tpu_torch.scripts import train as train_cli
 
-        config, data, pre, logdir = sys.argv[1:5]
-        args = ["--config", config, "--device", "cpu", f"data_root={data}",
-                f"data_preprocess_root={pre}", f"logdir={logdir}",
-                *sys.argv[5:]]
-        report = {}
-        first = train_cli.main(args + ["--max-steps", "2"])
-        report["first"] = [first.step, first.metrics_logger.path,
-                           first.ckpt.has("last")]
-        again = train_cli.main(args + ["--max-steps", "2"])
-        report["again"] = again.step
+        base, *overrides = sys.argv[1:]
+        report = {"summary": rd.main([
+            "--base", base, "--epochs", "2", "--kill-step", "2",
+            "--frames", "1", "--device", "cpu", *overrides])}
+        with open(f"{base}/B.log") as f:
+            report["B_log"] = f.read()
         out = io.StringIO()
         with contextlib.redirect_stdout(out):
-            eval_cli.main(args + ["--ckpt", "last"])
+            eval_cli.main([
+                "--config", default_config_path(rd.TA_CONFIG),
+                "--device", "cpu", "--ckpt", "last", f"data_root={base}/ta",
+                f"data_preprocess_root={base}/ta_pre", f"logdir={base}/A",
+                *rd.TOY, *overrides])
         report["eval"] = out.getvalue()
         report["jax_side"] = sorted(
             m for m, mod in sys.modules.items() if mod is not None
@@ -389,44 +396,69 @@ def cli_proc(toy_tree, tmp_path_factory):
                                     "occdepth_tpu"))
         print(json.dumps(report))
     """)
-    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    # the stubs come first on the path, and the processes run outside
+    # the repo, whose root would otherwise put `occdepth_tpu` first
+    env = dict(os.environ, PYTHONPATH=f"{blocked}{os.pathsep}{REPO}",
+               OMP_NUM_THREADS="1")
     proc = subprocess.Popen(
-        [sys.executable, "-c", code, TA_CONFIG,
-         os.path.join(toy_tree, "ta"), os.path.join(toy_tree, "ta_pre"),
-         logdir, *TINY_TA_OVERRIDES],
-        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        [sys.executable, "-c", code, base, *RESUME_OVERRIDES],
+        cwd=base, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True)
     yield proc
     if proc.poll() is None:
         proc.kill()
         proc.communicate()
+    shutil.rmtree(base, ignore_errors=True)  # ~1 GB of checkpoints
 
 
 @pytest.fixture(scope="module")
 def cli_run(cli_proc):
     """(the CLI run's JSON report, its stdout)."""
-    stdout, stderr = cli_proc.communicate(timeout=300)
+    stdout, stderr = cli_proc.communicate(timeout=400)
     assert cli_proc.returncode == 0, stdout[-3000:] + stderr[-3000:]
     return json.loads(stdout.strip().splitlines()[-1]), stdout
 
 
+def _metrics(base, run):
+    [path] = glob.glob(os.path.join(base, run, "*", "metrics.jsonl"))
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
 def test_train_cli_trains_and_writes_on_cpu(cli_run):
-    report, _ = cli_run
-    step, metrics_path, has_last = report["first"]
-    assert step == 2 and has_last
-    with open(metrics_path) as f:
-        recs = [json.loads(line) for line in f]
+    """Run A: one train record per step, finite losses, validation and a
+    `last` checkpoint at each epoch end."""
+    base = cli_run[0]["summary"]["base"]
+    recs = _metrics(base, "A")
     train = [r for r in recs if "train/loss" in r]
     assert [r["step"] for r in train] == [1, 2]
     assert all(np.isfinite(r[k]) for r in train for k in r
                if k.startswith("train/loss"))
-    assert [r["step"] for r in recs if "val/mIoU" in r] == [2]
+    assert [r["step"] for r in recs if "val/mIoU" in r] == [1, 2]
+    assert glob.glob(os.path.join(base, "A", "*", "checkpoints", "last.pt"))
 
 
 def test_train_cli_resumes(cli_run):
-    report, stdout = cli_run
-    assert report["again"] == 2
-    assert "resumed from step 2" in stdout
+    """Run B, SIGKILLed during its second epoch, resumed at the first
+    epoch's checkpoint and finished the run."""
+    report, _ = cli_run
+    assert report["summary"]["killed_at_step"] == 2
+    assert "resumed from step 1" in report["B_log"]
+    assert "train: steps 1 -> 2" in report["B_log"]
+
+
+def test_resume_is_bitwise(cli_run):
+    """The resumed run B equals run A bitwise: every logged value at
+    every step (train losses, lr, the epochs' val metrics) and every
+    tensor of the `last` checkpoints (parameters, BN statistics, AdamW
+    state)."""
+    summary = cli_run[0]["summary"]
+    assert summary["ok"] and summary["bitwise"], summary
+    assert summary["resume_exercised"]
+    assert summary["records_compared"] == 4  # 2 train + 2 epoch records
+    assert summary["values_compared"] > 50
+    assert summary["checkpoint_leaves"] > 1000
+    assert summary["nondeterministic_ops"] == []
 
 
 def test_eval_cli_prints_tartanair_classes(cli_run):

@@ -28,6 +28,7 @@ within NOISE_MULT times the port's own change under that perturbation
 self-noise against float64).  A missing stop_gradient, a dropped loss term
 or a wrong layout moves gradients by far more than that noise.
 """
+import concurrent.futures
 import functools
 
 import jax
@@ -167,34 +168,28 @@ def step_results(request, jax_update_fn):
     batches = [make_synthetic_batch(cfg, batch_size=1, seed=30 + i,
                                     with_labels=True) for i in range(accum)]
 
-    # ---- JAX: grad per microbatch (BN stats threaded), mean, update ----
-    grad_sum, logs_all, batch_stats = None, [], stats
-    for b in batches:
-        g, (logs, batch_stats) = jax_grad_fn(params, batch_stats, b)
-        g = _numpy_tree(g)
-        grad_sum = g if grad_sum is None else jax.tree_util.tree_map(
-            np.add, grad_sum, g)
-        logs_all.append({k: float(v) for k, v in logs.items()})
-    grads = jax.tree_util.tree_map(lambda t: t / np.float32(accum), grad_sum)
-    clipped, new_params = jax_update_fn(grads, params)
-    ref_logs = {k: np.mean([lg[k] for lg in logs_all]) for k in logs_all[0]}
-    ref_grads = state_dict_from_jax(
-        {"params": _numpy_tree(clipped), "batch_stats": stats}, cfg)
-    ref_after = state_dict_from_jax(
-        {"params": _numpy_tree(new_params),
-         "batch_stats": _numpy_tree(batch_stats)}, cfg)
-
     # ---- port: one train_step over the same microbatches, and again
-    # from rounding-sized perturbed weights (the noise yardstick) ----
+    # from rounding-sized perturbed weights (the noise yardstick), in a
+    # thread beside the JAX side (whose first call is mostly XLA's
+    # compiler); the two share no state ----
     perturbed = [perturbed_copy(port, seed) for seed in range(N_PERTURB)]
-    logs, grads, after, before, completion, conf, views = _port_step(
-        cfg, port, batches)
+
+    def port_side():
+        return (_port_step(cfg, port, batches),
+                [_port_step(cfg, m, batches) for m in perturbed])
+
+    with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
+        port_future = pool.submit(port_side)
+        ref_logs, ref_grads, ref_after = _jax_side(
+            jax_grad_fn, jax_update_fn, cfg, params, stats, batches)
+        ours, ours_perturbed = port_future.result()
+
+    logs, grads, after, before, completion, conf, views = ours
     update = {n: after[n] - before[n] for n in before}
     grads_p, update_p, stats_p = [], [], []
     stat_keys = [k for k in after if k.endswith(("running_mean",
                                                  "running_var"))]
-    for m in perturbed:
-        _, g_p, after_p, before_p, _, _, _ = _port_step(cfg, m, batches)
+    for _, g_p, after_p, before_p, _, _, _ in ours_perturbed:
         grads_p.append(g_p)
         update_p.append({n: after_p[n] - before_p[n] for n in before})
         stats_p.append({k: after_p[k] for k in stat_keys})
@@ -217,6 +212,28 @@ def step_results(request, jax_update_fn):
         "counts": (completion, conf, batches),
         "views": (cfg, views),
     }
+
+
+def _jax_side(jax_grad_fn, jax_update_fn, cfg, params, stats, batches):
+    """JAX: grad per microbatch (BN stats threaded), mean, clip + update;
+    (mean logs, clipped gradients and updated state as port state_dicts)."""
+    accum = len(batches)
+    grad_sum, logs_all, batch_stats = None, [], stats
+    for b in batches:
+        g, (logs, batch_stats) = jax_grad_fn(params, batch_stats, b)
+        g = _numpy_tree(g)
+        grad_sum = g if grad_sum is None else jax.tree_util.tree_map(
+            np.add, grad_sum, g)
+        logs_all.append({k: float(v) for k, v in logs.items()})
+    grads = jax.tree_util.tree_map(lambda t: t / np.float32(accum), grad_sum)
+    clipped, new_params = jax_update_fn(grads, params)
+    ref_logs = {k: np.mean([lg[k] for lg in logs_all]) for k in logs_all[0]}
+    ref_grads = state_dict_from_jax(
+        {"params": _numpy_tree(clipped), "batch_stats": stats}, cfg)
+    ref_after = state_dict_from_jax(
+        {"params": _numpy_tree(new_params),
+         "batch_stats": _numpy_tree(batch_stats)}, cfg)
+    return ref_logs, ref_grads, ref_after
 
 
 def _noise_aware_worst(ours, ref, perturbed, rtol=GRAD_RTOL):
