@@ -192,7 +192,23 @@ Phases, one line each:
      scripts/check_resume_determinism.py (TartanAir toy tree,
      deterministic: true, SIGKILL and resume) and
      scripts/check_convergence.py (the flagship on a make_kitti_tree tree,
-     loss descent across a SIGKILL/resume splice).
+     loss descent across a SIGKILL/resume splice);
+ 28. the raw-data path: (a) the native preprocessing library (built with
+     g++ into build/native/ at start; here a forced build's seconds) and
+     each binding held exactly to its plain NumPy version; (b) raw
+     SemanticKITTI .label/.invalid files beside a full-size
+     make_kitti_tree tree whose labels are deleted, the preprocess_kitti
+     CLI, every _1_1 held to the plain remap and every _1_8 to the plain
+     majority pool, then the flagship (bf16, dw_conv_grad=pallas) trained
+     2 steps from that tree through the train CLI's main (the lift and K2
+     once a step and per val forward, K4 22 times a step, no copies);
+     (c) raw NYU RLE scans, the preprocess_nyu CLI, its targets held to
+     the plain decode and pool, one b4 eval batch of 2 frames; (d) a raw
+     10-frame TartanAir depth/seg sequence, the export_voxels_tartanair
+     CLI with 2 workers, target_1_1 held to the plain vote, one eval batch
+     of its 2 frames; (e) bench_loader on (b)'s tree: ms/sample with the
+     native and the plain frustum histograms at workers 0 and 2, beside
+     (b)'s ms/step.
 Then a JSON line of per-kernel results, the `nvidia-smi` name/power-limit
 line, and as the last line {"ok": true, "device": {...}}.  Any failure
 raises and exits non-zero; there is no CPU fallback.
@@ -2671,6 +2687,377 @@ def phase_ddp(dev, smi: str) -> dict:
                 convergence=res["convergence"])
 
 
+RAW_FRAMES = 2  # per KITTI sequence (00, 08; 01-07, 09, 10 link to 00)
+RAW_TA_FRAMES = 10  # of the raw TartanAir sequence: 2 exported (every 5th)
+RAW_EVAL_BATCH = 2  # NYU's and TartanAir's 2 eval frames: one batch
+RAW_LOADER_N = 8  # samples timed per bench_loader case
+
+
+def plain_pool(label, ds: int):
+    """The plain majority pool (`native_ext.downsample_label_plain`) of a
+    full-size grid, one slab of `ds` x-rows at a time on 8 threads: the
+    plain version's one-hot temporaries stay per slab."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from occdepth_tpu_torch.native_ext import downsample_label_plain
+
+    starts = range(0, label.shape[0] // ds * ds, ds)
+    with ThreadPoolExecutor(8) as pool:
+        return np.concatenate(list(pool.map(
+            lambda x: downsample_label_plain(label[x:x + ds], ds), starts)))
+
+
+def cli_summary(lines, name: str) -> tuple:
+    """(items, seconds) of a preprocessing CLI's summary line."""
+    line = next(x for x in lines if x.startswith(name + ": "))
+    words = line.split()
+    return int(words[1]), float(words[4])
+
+
+def raw_native() -> dict:
+    """28(a). The native library: a forced build into a fresh directory
+    (its seconds), and each binding held exactly to its plain version on
+    seeded inputs at small shapes."""
+    from occdepth_tpu_torch import native_ext as ne
+    from occdepth_tpu_torch.geometry.frustums_mask import (
+        compute_frustum_class_dists_plain,
+    )
+
+    tmp = tempfile.mkdtemp(prefix="occdepth_native_")
+    try:
+        _, seconds = ne.build(force=True, build_dir=tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rng = np.random.RandomState(28)
+    label = rng.choice([0, 1, 2, 7, 200, 255], size=(64, 32, 32),
+                       p=[0.6, 0.1, 0.1, 0.04, 0.01, 0.15]).astype(np.uint8)
+    label[:16] = 0
+    label[-16:] = 255
+    for ds in (2, 4, 8, 16):
+        check(np.array_equal(ne.downsample_label(label, ds),
+                             ne.downsample_label_plain(label, ds)),
+              f"native downsample_label at ds {ds}")
+    rle = np.stack([rng.choice(np.r_[0:37, 255, 40], size=500),
+                    rng.randint(0, 40, size=500)], 1).reshape(-1)
+    rle = rle.astype(np.uint32)
+    cmap = (np.arange(37) % 12).astype(np.uint8)
+    n = int(rle[1::2].sum())
+    check(np.array_equal(ne.rle_decode(rle, cmap, n),
+                         ne.rle_decode_plain(rle, cmap, n)),
+          "native rle_decode")
+    try:
+        ne.rle_decode(rle, cmap, n - 1)
+        check(False, "native rle_decode missed an overflow")
+    except ValueError:
+        pass
+    vi = rng.randint(-2, 10, size=(5000, 3)).astype(np.int32)
+    ci = rng.randint(0, 6, size=5000).astype(np.int32)
+    for a, b in zip(ne.voxel_vote(vi, ci, (8, 6, 7), 6),
+                    ne.voxel_vote_plain(vi, ci, (8, 6, 7), 6)):
+        check(np.array_equal(a, b), "native voxel_vote")
+    bits = (rng.rand(8 * 4096) < 0.3).astype(np.uint8)
+    packed = ne.pack_bits(bits)
+    check(np.array_equal(packed, ne.pack_bits_plain(bits))
+          and np.array_equal(ne.unpack_bits(packed), bits)
+          and np.array_equal(ne.unpack_bits_plain(packed), bits),
+          "native pack_bits / unpack_bits")
+    for V in (1, 2):
+        pix = rng.randint(-8, 72, size=(V, 2400, 1, 2)).astype(np.int64)
+        pix[:, :50, 0, 0] = 2 ** 40  # far past int32: invalid, not wrapped
+        pz = rng.randn(V, 2400).astype(np.float32)
+        tgt = rng.choice(np.r_[0:5, 255], size=(20, 12, 10)).astype(np.int32)
+        native = ne.frustum_class_dists(pix[..., 0, 0], pix[..., 0, 1], pz,
+                                        tgt.reshape(-1), 4, 64, 48, 5)
+        plain = compute_frustum_class_dists_plain(pix, pz, tgt, 64, 48,
+                                                  "kitti", 5, 4)
+        check(np.array_equal(native, plain),
+              f"native frustum_class_dists at V = {V}")
+    res = {"build_s": seconds, "library": ne.library_path()}
+    log("raw_native", build_s=f"{seconds:.2f}", library=res["library"],
+        bindings="downsample_label ds 2/4/8/16, rle_decode (+ overflow), "
+                 "voxel_vote, pack/unpack_bits, frustum_class_dists V 1/2: "
+                 "equal to their plain versions")
+    return res
+
+
+def raw_eval(cfg, tag: str, n_frames: int) -> dict:
+    """One eval batch of `cfg` (its val split, RAW_EVAL_BATCH frames) from
+    a reference-schema .ckpt of seeded weights, counters set to 0 just
+    before: the lift and K2 once, K1 never; finite stats."""
+    import torch
+
+    from occdepth_tpu_torch.models import OccDepthModel
+    from occdepth_tpu_torch.scripts.eval import evaluate
+    from occdepth_tpu_torch.testing import randomize_weights
+
+    ckpt = os.path.join(cfg.logdir, "ref.ckpt")
+    os.makedirs(cfg.logdir, exist_ok=True)
+    sd = randomize_weights(OccDepthModel(cfg), seed=0).state_dict()
+    torch.save({"state_dict": {"model." + k: v for k, v in sd.items()}},
+               ckpt)
+    del sd
+    reset_counts()
+    st = evaluate(cfg, torch_ckpt=ckpt)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    n_vox = int(st["conf"].sum())
+    log(tag, frames=st["n_frames"], batch=cfg.batch_size_per_gpu,
+        mIoU=f"{st['iou_ssc_mean']:.6f}", loss=f"{st['losses']['loss']:.5f}",
+        ms_per_frame=f"{st['ms_per_frame']:.2f}",
+        **{f"{k}_launches": v for k, v in launches.items()})
+    check(st["n_frames"] == n_frames
+          and n_vox == n_frames * math.prod(cfg.full_scene_size),
+          f"{tag}: {st['n_frames']} frames, {n_vox} voxels")
+    check(launches["flosp_stereo_lift"] == launches["crp_relation_matmul"]
+          == 1 and launches["stereo_cosine_fuse"] == 0,
+          f"{tag}: one batch launched {launches}")
+    check(all(math.isfinite(v) for v in [
+        st["precision"], st["recall"], st["iou"], st["iou_ssc_mean"],
+        *st["iou_ssc"].tolist(), *st["losses"].values()]),
+        f"{tag}: a stat is not finite")
+    return {"launches": launches, "ms_per_frame": st["ms_per_frame"]}
+
+
+def raw_kitti(base: str, smi: str) -> dict:
+    """28(b). KITTI from raw files: .label/.invalid beside a full-size
+    make_kitti_tree tree, its pre/labels deleted, the preprocess_kitti CLI,
+    every _1_1 held to the plain remap and every _1_8 to the plain pool of
+    its _1_1, then the flagship (bf16, dw_conv_grad=pallas) trained 2
+    steps from that tree through the train CLI's main."""
+    import torch
+
+    from occdepth_tpu_torch.config import default_config_path
+    from occdepth_tpu_torch.data import kitti_io
+    from occdepth_tpu_torch.native_ext import unpack_bits_plain
+    from occdepth_tpu_torch.ops.dw_conv import dw_filter_grad
+    from occdepth_tpu_torch.scripts import train as train_cli
+    from occdepth_tpu_torch.testing import make_kitti_tree, write_kitti_raw
+
+    t0 = time.perf_counter()
+    make_kitti_tree(base, n_frames=RAW_FRAMES)
+    n_raw = write_kitti_raw(base)
+    shutil.rmtree(os.path.join(base, "pre", "labels"))
+    tree_s = time.perf_counter() - t0
+    paths = [f"data_root={base}/kitti", f"data_preprocess_root={base}/pre",
+             f"data_stereo_depth_root={base}/stereo_depth"]
+    t0 = time.perf_counter()
+    lines = run_cli("preprocess_kitti", [
+        "--config", default_config_path(FLAGSHIP), *paths], "raw_kitti_cli")
+    cli_s = time.perf_counter() - t0
+    frames, pre_s = cli_summary(lines, "preprocess_kitti")
+    n_seq = len(kitti_io.TRAIN_SEQUENCES) + len(kitti_io.VAL_SEQUENCES)
+    check(n_raw == 2 * RAW_FRAMES and frames == n_seq * RAW_FRAMES,
+          f"preprocess_kitti wrote {frames} frames ({n_raw} raw)")
+    # every frame of every sequence, the plain pool once per distinct _1_1
+    t0 = time.perf_counter()
+    lut, pools = kitti_io.get_remap_lut(), {}
+    for seq in kitti_io.TRAIN_SEQUENCES + kitti_io.VAL_SEQUENCES:
+        for i in range(RAW_FRAMES):
+            vox = f"{base}/kitti/dataset/sequences/{seq}/voxels/{5 * i:06d}"
+            raw = np.fromfile(vox + ".label", np.uint16)
+            inv = unpack_bits_plain(np.fromfile(vox + ".invalid", np.uint8))
+            expect = np.where(inv == 1, 255, lut[raw]).astype(np.uint8)
+            out = f"{base}/pre/labels/{seq}/{5 * i:06d}"
+            t11 = np.load(out + "_1_1.npy")
+            check(np.array_equal(t11, expect.reshape(kitti_io.SCENE_DIMS)),
+                  f"{seq}/{5 * i:06d}_1_1 is not the plain remap")
+            key = t11.tobytes()
+            if key not in pools:
+                pools[key] = plain_pool(t11, 8)
+            check(np.array_equal(np.load(out + "_1_8.npy"), pools[key]),
+                  f"{seq}/{5 * i:06d}_1_8 is not the plain pool")
+    check_s = time.perf_counter() - t0
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer = train_cli.main([
+        "--config", default_config_path(FLAGSHIP), "--max-steps", "2",
+        *paths, f"logdir={base}/logdir", "compute_dtype=bfloat16",
+        "dw_conv_grad=pallas", "batch_size_per_gpu=1",
+        "log_every_n_steps=1"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches, copies = read_counts(), dw_filter_grad.copies
+    n_val = len(kitti_io.VAL_SEQUENCES) * RAW_FRAMES  # batch 1
+    step_ms = list(trainer.step_ms)
+    with open(trainer.metrics_logger.path) as f:
+        records = [json.loads(line) for line in f]
+    losses = [r["train/loss"] for r in records if "train/loss" in r]
+    del trainer
+    torch.cuda.empty_cache()
+    log("raw_kitti", gpu=repr(smi), tree_s=f"{tree_s:.2f}",
+        preprocess_frames=frames, preprocess_s=f"{pre_s:.3f}",
+        preprocess_s_per_frame=f"{pre_s / frames:.4f}",
+        cli_wall_s=f"{cli_s:.2f}", check_s=f"{check_s:.2f}",
+        distinct_label_grids=len(pools), train_wall_s=f"{train_s:.2f}",
+        step_ms=",".join(f"{t:.2f}" for t in step_ms),
+        losses=",".join(f"{x:.4f}" for x in losses), k4_copies=copies,
+        **{f"{k}_launches": v for k, v in launches.items()})
+    check(len(step_ms) == 2 and len(losses) == 2
+          and all(math.isfinite(x) for x in losses),
+          f"raw KITTI train: steps {step_ms}, losses {losses}")
+    check(launches["dw_filter_grad"] == 22 * 2 and copies == 0,
+          f"raw KITTI train: K4 {launches['dw_filter_grad']}, {copies} "
+          "copies")
+    for name in ("flosp_stereo_lift", "crp_relation_matmul"):
+        check(launches[name] == 2 + n_val,
+              f"raw KITTI train: {name} {launches[name]} for 2 steps and "
+              f"{n_val} val forwards")
+    check(launches["stereo_cosine_fuse"] == launches["conv3x3"] == 0,
+          f"raw KITTI train: K1/K3 launched {launches}")
+    return {"launches": launches, "preprocess_s_per_frame": pre_s / frames,
+            "frames": frames, "step_ms": step_ms, "tree": base}
+
+
+def raw_nyu(base: str, smi: str) -> dict:
+    """28(c). NYU from raw files: RLE .bin scans over a full-size
+    make_nyu_tree tree, its base/*.pkl deleted, the preprocess_nyu CLI,
+    target_1_4 / target_1_16 held to the plain decode and pool, and one
+    eval batch of the b4 config on the card."""
+    import pickle
+
+    from occdepth_tpu_torch.config import default_config_path, load_config
+    from occdepth_tpu_torch.native_ext import rle_decode_plain
+    from occdepth_tpu_torch.scripts.preprocess_nyu import (
+        SCENE_SIZE,
+        SEG_CLASS_MAP,
+        read_rle_bin,
+    )
+    from occdepth_tpu_torch.testing import make_nyu_tree, write_nyu_raw
+
+    make_nyu_tree(base, n_frames=NYU_FRAMES)
+    n_raw = write_nyu_raw(base)
+    shutil.rmtree(os.path.join(base, "base"))
+    lines = run_cli("preprocess_nyu", [
+        "--config", default_config_path(NYU_B4), f"data_root={base}",
+        f"data_preprocess_root={base}"], "raw_nyu_cli")
+    scans, pre_s = cli_summary(lines, "preprocess_nyu")
+    check(scans == n_raw == 2 * NYU_FRAMES,
+          f"preprocess_nyu wrote {scans} of {n_raw} scans")
+    t0 = time.perf_counter()
+    for split in ("train", "test"):
+        for i in range(NYU_FRAMES):
+            name = f"NYU{i + 1:04d}_0000"
+            origin, pose, rle = read_rle_bin(f"{base}/NYU{split}/{name}.bin")
+            t11 = rle_decode_plain(rle, SEG_CLASS_MAP,
+                                   math.prod(SCENE_SIZE)).reshape(SCENE_SIZE)
+            with open(f"{base}/base/NYU{split}/{name}.pkl", "rb") as f:
+                rec = pickle.load(f)
+            check(np.array_equal(rec["target_1_4"], plain_pool(t11, 4))
+                  and np.array_equal(rec["target_1_16"], plain_pool(t11, 16))
+                  and np.array_equal(rec["cam_pose"], pose)
+                  and np.array_equal(rec["voxel_origin"], origin),
+                  f"NYU{split}/{name}: not the plain decode and pool")
+    check_s = time.perf_counter() - t0
+    cfg = load_config(default_config_path(NYU_B4), overrides=nyu_overrides(
+        base, "raw_eval", batch_size_per_gpu=RAW_EVAL_BATCH))
+    ev = raw_eval(cfg, "raw_nyu_eval", NYU_FRAMES)
+    log("raw_nyu", gpu=repr(smi), scans=scans, preprocess_s=f"{pre_s:.3f}",
+        preprocess_s_per_frame=f"{pre_s / scans:.4f}",
+        check_s=f"{check_s:.2f}")
+    return dict(ev, preprocess_s_per_frame=pre_s / scans, frames=scans)
+
+
+def raw_tartanair(base: str, smi: str) -> dict:
+    """28(d). TartanAir from raw files: a 10-frame 480x640 depth/seg
+    sequence as the val sequence P005 of a full-size make_tartanair_tree
+    tree whose labels are deleted, the export_voxels_tartanair CLI with 2
+    workers (every 5th frame), target_1_1 held to the plain vote on the
+    same unprojection, and one eval batch on the card."""
+    import pickle
+
+    from occdepth_tpu_torch.config import default_config_path, load_config
+    from occdepth_tpu_torch.native_ext import (
+        downsample_label_plain,
+        voxel_vote_plain,
+    )
+    from occdepth_tpu_torch.scripts import export_voxels_tartanair as ex
+    from occdepth_tpu_torch.testing import (
+        make_tartanair_tree,
+        write_tartanair_raw,
+    )
+
+    # images for frames 0-5, so the exported 000000 and 000005 have theirs
+    make_tartanair_tree(base, grid=TA_GRID, voxel_size=TA_VOXEL, n_frames=6)
+    shutil.rmtree(os.path.join(base, "ta_pre", "labels"))
+    write_tartanair_raw(base, "P005", n_frames=RAW_TA_FRAMES)
+    paths = ta_paths(base, "raw_eval")
+    lines = run_cli("export_voxels_tartanair", [
+        "--config", default_config_path(TA_CONFIG), "--workers", "2",
+        "--sequences", "P005", *(f"{k}={v}" for k, v in paths.items())],
+        "raw_ta_cli")
+    frames, export_s = cli_summary(lines, "export_voxels_tartanair")
+    check(frames == RAW_TA_FRAMES // 5, f"exported {frames} frames")
+    seq_dir = os.path.join(base, "ta", "office", "Easy", "P005")
+    poses = ex.read_center_poses(os.path.join(seq_dir, "pose_left.txt"))
+    for i in range(0, RAW_TA_FRAMES, 5):
+        depth = np.load(f"{seq_dir}/depth_left/{i:06d}_left_depth.npy")
+        seg = np.load(f"{seq_dir}/seg_left/{i:06d}_left_seg.npy")
+        vox_idx, cls = ex.depth_voxel_indices(depth, seg, poses[i])
+        _, vcls = voxel_vote_plain(vox_idx, cls, ex.VOX_SHAPE,
+                                   len(ex.TARTANAIR_CLASS_DICT))
+        with open(f"{base}/ta_pre/labels/office/Easy/P005/voxels_left/"
+                  f"{i:06d}.pkl", "rb") as f:
+            rec = pickle.load(f)
+        check(np.array_equal(rec["target_1_1"], vcls)
+              and np.array_equal(rec["target_1_4"],
+                                 downsample_label_plain(vcls, 4)),
+              f"P005/{i:06d}: target_1_1 is not the plain vote")
+        check(len(np.unique(vcls)) > 5, f"P005/{i:06d}: few classes")
+    cfg = load_config(default_config_path(TA_CONFIG), overrides=dict(
+        paths, batch_size_per_gpu=RAW_EVAL_BATCH))
+    ev = raw_eval(cfg, "raw_ta_eval", RAW_TA_FRAMES // 5)
+    log("raw_ta", gpu=repr(smi), frames=frames, export_s=f"{export_s:.3f}",
+        export_s_per_frame=f"{export_s / frames:.4f}", workers=2)
+    return dict(ev, export_s_per_frame=export_s / frames, frames=frames)
+
+
+def phase_raw_data(smi: str) -> dict:
+    """28. The raw-data path: (a) the native library, (b) KITTI, (c) NYU
+    and (d) TartanAir from raw files through the port's preprocessing
+    CLIs to a train step / an eval batch on the card, (e) bench_loader on
+    (b)'s tree, native and plain histograms at workers 0 and 2."""
+    import torch
+
+    from occdepth_tpu_torch.scripts import bench_loader
+
+    t_phase = time.perf_counter()
+    res = {"native": raw_native()}
+    bases = {k: tempfile.mkdtemp(prefix=f"occdepth_raw_{k}_")
+             for k in ("kitti", "nyu", "ta")}
+    try:
+        res["kitti"] = raw_kitti(bases["kitti"], smi)
+        res["nyu"] = raw_nyu(bases["nyu"], smi)
+        res["tartanair"] = raw_tartanair(bases["ta"], smi)
+        torch.cuda.empty_cache()
+        step_ms = res["kitti"]["step_ms"][-1]
+        cases = bench_loader.main([
+            "--tree", bases["kitti"], "--n", str(RAW_LOADER_N),
+            "--workers", "0,2", "--frustum", "native,plain",
+            "--step-ms", f"{step_ms}"])
+    finally:
+        for b in bases.values():
+            shutil.rmtree(b, ignore_errors=True)
+    res["loader"] = {f"{c['frustum']}_w{c['workers']}": c["ms_per_sample"]
+                     for c in cases}
+    log("raw_loader", gpu=repr(smi), samples_per_case=RAW_LOADER_N,
+        train_step_ms=f"{step_ms:.2f}",
+        **{f"ms_per_sample_{k}": f"{v:.2f}"
+           for k, v in res["loader"].items()},
+        **{f"loader_per_step_{c['frustum']}_w{c['workers']}":
+           f"{c['loader_per_step']:.3f}" for c in cases})
+    check(len(cases) == 4 and all(c["ms_per_sample"] > 0 for c in cases),
+          f"bench_loader cases {cases}")
+    res["launches"] = {name: sum(res[k]["launches"][name]
+                                 for k in ("kitti", "nyu", "tartanair"))
+                       for name in kernel_counters()}
+    res["seconds"] = time.perf_counter() - t_phase
+    log("raw_phase", seconds=f"{res['seconds']:.1f}",
+        **{f"{k}_launches": v for k, v in res["launches"].items()})
+    return res
+
+
 def main() -> None:
     import torch
 
@@ -2679,6 +3066,7 @@ def main() -> None:
     from occdepth_tpu_torch.config import default_config_path, load_config
     from occdepth_tpu_torch.data.nyu import NYUDataset
     from occdepth_tpu_torch.data.tartanair import TartanAirDataset
+    from occdepth_tpu_torch import native_ext
     from occdepth_tpu_torch.ops import cuda_lib
     from occdepth_tpu_torch.scripts.profile_serve_stages import (
         serving_setup,
@@ -2705,6 +3093,9 @@ def main() -> None:
     cuda_lib.library()
     log("build", seconds=f"{build_s:.2f}",
         cached=build_s == 0.0, library=lib_path)
+    native_path, native_s = native_ext.build()
+    log("build_native", seconds=f"{native_s:.2f}", cached=native_s == 0.0,
+        library=native_path)
 
     # ---- 3, 3b, 4. K1, the fused lift and K2 at the main path's shapes ----
     cfg, pipe, calib = serving_setup(BATCH)
@@ -2828,6 +3219,8 @@ def main() -> None:
     exported = phase_export(dev, smi)
     # ---- 27. data parallel: DDP world 1, two gloo ranks, the tools ----
     parallel = phase_ddp(dev, smi)
+    # ---- 28. the raw-data path: native library, preprocessing, loader ----
+    raw = phase_raw_data(smi)
 
     def by_path(name):
         paths = {"serve": launches[name], "train": train["launches"][name],
@@ -2847,7 +3240,8 @@ def main() -> None:
                                 for t in ("generate_output", "submission"))
                  + nyu_outputs["launches"][name],
                  "export": exported["launches"][name],
-                 "ddp": parallel["launches"][name]}
+                 "ddp": parallel["launches"][name],
+                 "raw_data": raw["launches"][name]}
         return {"launches": sum(paths.values()), "launches_by_path": paths}
 
     def at_ta(r, keys=("max_abs_err", "ms", "plain_ms", "bound_ms",

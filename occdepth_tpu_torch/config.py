@@ -283,11 +283,8 @@ def parse_overrides(args) -> Dict[str, Any]:
 def default_config_path(name: str) -> str:
     """Resolve a shipped config by name, e.g. 'semantic_kitti/flospdepth'.
 
-    The YAML files live once, in the JAX package's `configs/` directory;
-    reading them imports no Python from that package.
+    The port ships its own copies of the YAML files, under this package's
+    `configs/` directory, byte for byte those of the JAX package.
     """
-    root = os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        "occdepth_tpu", "configs",
-    )
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
     return os.path.join(root, name + ".yaml")

@@ -1,10 +1,10 @@
-"""SemanticKITTI voxel IO: bit unpack, label remap, calib parsing (NumPy).
+"""SemanticKITTI voxel IO: bit unpack, label remap, calib parsing.
 
 A copy of `occdepth_tpu/data/kitti_io.py` (reference
-occdepth/data/semantic_kitti/io_data.py and kitti_dataset.py:428-450),
-with the bit packing of `occdepth_tpu/native_ext.py` in NumPy: the port
-imports nothing of the JAX package and needs no native library.  The
-learning maps are dataset metadata from the semantic-kitti.yaml spec.
+occdepth/data/semantic_kitti/io_data.py and kitti_dataset.py:428-450);
+the bit (un)packing runs in the port's native library, as the JAX
+package's does.  The learning maps are dataset metadata from the
+semantic-kitti.yaml spec.
 """
 from __future__ import annotations
 
@@ -12,6 +12,8 @@ import os
 from typing import Dict
 
 import numpy as np
+
+from occdepth_tpu_torch.native_ext import unpack_bits
 
 
 # raw semantic-kitti label id -> train id (0 empty, 1..19 classes)
@@ -32,16 +34,6 @@ SCENE_DIMS = (256, 256, 32)
 TRAIN_SEQUENCES = ["00", "01", "02", "03", "04", "05", "06", "07", "09", "10"]
 VAL_SEQUENCES = ["08"]
 TEST_SEQUENCES = ["11", "12", "13", "14", "15", "16", "17", "18", "19", "20", "21"]
-
-
-def unpack_bits(packed: np.ndarray) -> np.ndarray:
-    """1 byte -> 8 voxels, MSB first (io_data.py:10-22)."""
-    return np.unpackbits(np.ascontiguousarray(packed, dtype=np.uint8))
-
-
-def pack_bits(bits: np.ndarray) -> np.ndarray:
-    """The inverse of `unpack_bits` (8 voxels -> 1 byte, MSB first)."""
-    return np.packbits(np.ascontiguousarray(bits.reshape(-1), dtype=np.uint8))
 
 
 def get_remap_lut() -> np.ndarray:

@@ -1,13 +1,18 @@
-"""Per-frustum ground-truth class histograms for the fp loss (NumPy).
+"""Per-frustum ground-truth class histograms for the fp loss.
 
-A copy of `compute_frustum_class_dists` and `world_order_target` of
-`occdepth_tpu/geometry/frustums_mask.py` (its NumPy path).  The voxel
-masks themselves are rebuilt on the device inside the loss
-(`losses/fp_device.py`); the data side only needs these (F, C) tables.
+The counterpart of `compute_frustum_class_dists` and `world_order_target`
+of `occdepth_tpu/geometry/frustums_mask.py`: one C++ pass of the port's
+native library (`native_ext.frustum_class_dists`), with the NumPy loop
+kept as the plain version (`compute_frustum_class_dists_plain`), which
+also serves more than 8 views.  The voxel masks themselves are rebuilt on
+the device inside the loss (`losses/fp_device.py`); the data side only
+needs these (F, C) tables.
 """
 from __future__ import annotations
 
 import numpy as np
+
+from occdepth_tpu_torch import native_ext
 
 
 def world_order_target(target: np.ndarray, dataset: str) -> np.ndarray:
@@ -44,6 +49,28 @@ def compute_frustum_class_dists(
     Returns (size^2, n_classes) float64 counts; a voxel seen by several
     views in one tile counts once.
     """
+    native = native_ext.frustum_class_dists(
+        projected_pix[:, :, 0, 0], projected_pix[:, :, 0, 1], pix_z,
+        world_order_target(target, dataset).reshape(-1), size, img_W, img_H,
+        n_classes)
+    if native is not None:
+        return native
+    return compute_frustum_class_dists_plain(
+        projected_pix, pix_z, target, img_W, img_H, dataset, n_classes, size)
+
+
+def compute_frustum_class_dists_plain(
+    projected_pix: np.ndarray,
+    pix_z: np.ndarray,
+    target: np.ndarray,
+    img_W: int,
+    img_H: int,
+    dataset: str,
+    n_classes: int,
+    size: int = 4,
+) -> np.ndarray:
+    """`compute_frustum_class_dists` in NumPy: per view, the voxels' tile
+    indices and one bincount (any number of views)."""
     px = projected_pix[:, :, 0, 0]  # (V, N)
     py = projected_pix[:, :, 0, 1]
     V = px.shape[0]

@@ -3,7 +3,7 @@
     python -m occdepth_tpu_torch.scripts.profile_train_step \\
         [--config NAME] [--steps 5] [--out train_profile.json]
 
-At a shipped config (`--config`, a name under occdepth_tpu/configs: the
+At a shipped config (`--config`, a name under occdepth_tpu_torch/configs: the
 flagship KITTI stereo config by default, b3, feature 32, 370x1220 stereo,
 256x256x32 grid; `tartanair/flosp_crp_cascadecls` for TartanAir's 480x640
 stereo and 120x48x120 grid; `NYU/multicam_flosp_crp_stereodepth_cascadecls`

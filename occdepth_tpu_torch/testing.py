@@ -12,7 +12,7 @@ import torch
 import torch.nn as nn
 
 from occdepth_tpu_torch.config import FlospDepthConfig, OccDepthConfig
-from occdepth_tpu_torch.data.kitti_io import pack_bits
+from occdepth_tpu_torch.native_ext import pack_bits
 
 TINY_IMG_KITTI = (64, 96)
 TINY_IMG_NYU = (64, 80)
@@ -323,6 +323,44 @@ def make_kitti_tree(base: str, n_frames: int = 2,
                 os.symlink("00", dst)
 
 
+def write_kitti_raw(base: str, seed: int = 0) -> int:
+    """Write the raw label files that `scripts/preprocess_kitti` reads
+    beside every frame of a `make_kitti_tree` tree under `base`:
+    `voxels/<frame>.label` (256x256x32 uint16 raw SemanticKITTI ids:
+    mapped and unmapped ids up to z = 12, each 8x8 column with a dominant
+    one, mostly empty above) and
+    `<frame>.invalid` (packed bits, ~10% set).  Returns the frames
+    written (sequences 00 and 08; the others link to 00)."""
+    from occdepth_tpu_torch.data.kitti_io import LEARNING_MAP, SCENE_DIMS
+
+    rng = np.random.RandomState(seed)
+    ids = np.array(sorted(LEARNING_MAP) + [2, 5, 100], np.uint16)
+    low = np.r_[0.5, np.full(ids.size - 1, 0.5 / (ids.size - 1))]
+    n = 0
+    for seq in ("00", "08"):
+        vox = os.path.join(base, "kitti", "dataset", "sequences", seq,
+                           "voxels")
+        for path in sorted(os.listdir(vox)):
+            if not path.endswith(".bin"):
+                continue
+            frame = path[:-4]
+            label = np.zeros(SCENE_DIMS, np.uint16)
+            label[:, :, :12] = rng.choice(ids, size=SCENE_DIMS[:2] + (12,),
+                                          p=low)
+            # each 8x8 column's dominant id covers ~40% of its low voxels
+            dominant = np.repeat(np.repeat(rng.choice(
+                ids[1:], size=(32, 32)), 8, 0), 8, 1)[:, :, None]
+            mask = rng.rand(*SCENE_DIMS[:2], 12) < 0.4
+            label[:, :, :12] = np.where(mask, dominant, label[:, :, :12])
+            top = rng.rand(*SCENE_DIMS[:2], SCENE_DIMS[2] - 12) < 0.02
+            label[:, :, 12:][top] = rng.choice(ids[1:], size=int(top.sum()))
+            label.tofile(os.path.join(vox, frame + ".label"))
+            invalid = (rng.rand(math.prod(SCENE_DIMS)) < 0.1).astype(np.uint8)
+            pack_bits(invalid).tofile(os.path.join(vox, frame + ".invalid"))
+            n += 1
+    return n
+
+
 TA_POSE_LEFT = "0.5 -0.2 0.1 0 0 0 1\n"
 TA_POSE_RIGHT = "0.5 0.05 0.1 0 0 0 1\n"  # 0.25 m to the right
 TA_TOY_GRID = (16, 8, 16)
@@ -425,6 +463,35 @@ def make_tartanair_tree(base: str, grid: tuple = TA_TOY_GRID,
                 pickle.dump(data, f)
 
 
+def write_tartanair_raw(base: str, seq: str = "P005", n_frames: int = 10,
+                        hw: tuple = (480, 640), seed: int = 0) -> None:
+    """Write the raw files that `scripts/export_voxels_tartanair` reads
+    for sequence `seq` of a tree under `base` (office/Easy):
+    `depth_left/<frame>_left_depth.npy` (float32 metres, 1-9 m rising
+    down the image, with noise), `seg_left/<frame>_left_seg.npy` (uint8
+    simulator ids, mapped and unmapped, constant over 32x32 tiles) and
+    `pose_left.txt` (`n_frames` lines of the tree's left pose, whose first
+    line the dataset reads).  The export takes every 5th frame."""
+    rng = np.random.RandomState(seed)
+    H, W = hw
+    seq_dir = os.path.join(base, "ta", "office", "Easy", seq)
+    for d in ("depth_left", "seg_left"):
+        os.makedirs(os.path.join(seq_dir, d), exist_ok=True)
+    with open(os.path.join(seq_dir, "pose_left.txt"), "w") as f:
+        f.write(TA_POSE_LEFT * n_frames)
+    seg_ids = np.array([22, 139, 90, 101, 211, 50, 120, 125, 148, 232, 28,
+                        137, 7, 99], np.uint8)
+    ramp = np.linspace(1.0, 9.0, H, dtype=np.float32)[:, None]
+    for i in range(n_frames):
+        depth = ramp + rng.uniform(-0.3, 0.3, (H, W)).astype(np.float32)
+        tiles = rng.choice(seg_ids, size=(-(-H // 32), -(-W // 32)))
+        seg = np.repeat(np.repeat(tiles, 32, 0), 32, 1)[:H, :W]
+        np.save(os.path.join(seq_dir, "depth_left",
+                             f"{i:06d}_left_depth.npy"), depth)
+        np.save(os.path.join(seq_dir, "seg_left", f"{i:06d}_left_seg.npy"),
+                np.ascontiguousarray(seg))
+
+
 def nyu_rig() -> tuple:
     """(cam_pose, voxel_origin) of a synthetic NYU tree: the camera 1 m
     behind the centre of the scene's low-x face at 1.44 m height, looking
@@ -504,3 +571,46 @@ def make_nyu_tree(base: str, n_frames: int = 2) -> None:
             }
             with open(os.path.join(pre, name + ".pkl"), "wb") as f:
                 pickle.dump(data, f)
+
+
+NYU_RAW_GRID = (240, 144, 240)
+
+
+def write_nyu_raw(base: str, seed: int = 0) -> int:
+    """Write the RLE voxel scan that `scripts/preprocess_nyu` reads over
+    every `NYU<split>/<name>.bin` of a `make_nyu_tree` tree under `base`:
+    float32[3] voxel origin and float32[16] camera pose (the tree's rig),
+    then uint32 (value, run) pairs over the 240x144x240 grid: 37-class
+    values, 255, and a few past the class map; each 16 x-slabs in turn
+    are mostly empty, mixed, mostly 255 or mixed.  Returns the scans
+    written."""
+    rng = np.random.RandomState(seed)
+    pose, origin = nyu_rig()
+    slab = NYU_RAW_GRID[1] * NYU_RAW_GRID[2]
+    values = np.r_[0:37, 255, 40].astype(np.uint32)
+    n = 0
+    for split in ("train", "test"):
+        root = os.path.join(base, "NYU" + split)
+        for name in sorted(os.listdir(root)):
+            if not name.endswith(".bin"):
+                continue
+            pairs = []
+            for x in range(NYU_RAW_GRID[0]):
+                # one regime per 16 x-slabs: empty, mixed, 255, mixed
+                p0, p255 = [(0.98, 0.01), (0.5, 0.05), (0.04, 0.95),
+                            (0.5, 0.05)][x // 16 % 4]
+                rest = 1.0 - p0 - p255
+                probs = np.r_[p0, np.full(36, 0.97 * rest / 36), p255,
+                              0.03 * rest]
+                runs = rng.geometric(1 / 48, size=2 * slab // 48)
+                runs = runs[: int(np.searchsorted(np.cumsum(runs), slab)) + 1]
+                runs[-1] -= runs.sum() - slab
+                vals = rng.choice(values, size=runs.size,
+                                  p=probs / probs.sum())
+                pairs.append(np.stack([vals, runs.astype(np.uint32)], 1))
+            with open(os.path.join(root, name), "wb") as f:
+                origin.astype(np.float32).tofile(f)
+                pose.astype(np.float32).reshape(-1).tofile(f)
+                np.concatenate(pairs).astype(np.uint32).tofile(f)
+            n += 1
+    return n

@@ -5,6 +5,7 @@ SFA lift (holder of kernel K1) and CPMegaVoxels (holder of kernel K2).
 Weights reach the flax modules through the JAX package's own converter.
 """
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -70,11 +71,12 @@ def test_config_copy_pins_fields_and_defaults(name):
 
 @pytest.mark.parametrize("name", SHIPPED)
 def test_config_loader_matches(name):
-    path = jax_config.default_config_path(name)
-    assert port_config.default_config_path(name) == path
+    path = port_config.default_config_path(name)
+    assert path == os.path.join(os.path.dirname(port_config.__file__),
+                                "configs", name + ".yaml")
     over = {"compute_dtype": "float32", "use_pallas": True}
     ours = port_config.load_config(path, over)
-    ref = jax_config.load_config(path, over)
+    ref = jax_config.load_config(jax_config.default_config_path(name), over)
     assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
     for prop in ("project_res", "output_scale", "with_depth_gt", "n_views",
                  "n_lift_views", "scene_size_meters", "voxel_size_meters",
