@@ -5,6 +5,11 @@
 Phases, one line each:
   1. environment: torch/CUDA versions, GPU name and power limit;
   2. builds the CUDA kernels from occdepth_tpu_torch/csrc with nvcc;
+ 2b. csrc/hopper_selftest.cu before any kernel runs: the bf16 TMA swizzle
+     and shifted-descriptor wgmma, ldmatrix.trans + RS wgmma, and the TF32
+     SS and RS products (N = 48, 96, 128) of the fp32 kernels, each
+     against the product computed on the host; the TF32 split kernel
+     against its plain version, bit for bit;
   3. K1 stereo_cosine_fuse vs its plain PyTorch version at the lift's
      shape (batch 2 x 262,144 voxel rows, C=32, two strided views of one
      fp32 tensor, masks ~30% zero), with device times (CUDA-graph
@@ -22,12 +27,15 @@ Phases, one line each:
      distinct gathered row once, the output once);
   4. K2 crp_relation_matmul vs its plain version at the CRP's shape, the
      four relations in one call (batch 2, R=4, N=4096, M=512, C=256, the
-     model's transposed operand views), in bf16 (wgmma) and fp32 (SIMT),
-     with device times (CUDA-graph replays) and the bound;
+     model's transposed operand views), in bf16 (wgmma) and fp32 (3xTF32
+     wgmma), each on its tensor-core kernel by the per-path counters, with
+     device times (CUDA-graph replays) beside the SIMT kernel on the same
+     operands and torch.sigmoid + matmul (TF32 off), and the bound (fp32:
+     three TF32 products at 495 TFLOP/s); both must beat the SIMT kernel;
   5. the tiny KITTI, TartanAir (project_scale 1), occluded-head KITTI and
      NYU RGB-D (the virtual right view) configs' forwards on CUDA
      (kernels) held to the same forwards on the CPU (plain versions), fp32
-     with TF32 off: the fused lift and K2 launch once each, the
+     with TF32 off: the fused lift and K2 (3xTF32) launch once each, the
      standalone K1 never;
   6. the serving path: ServingPipeline at the flagship KITTI stereo config
      (b3, feature 32, 370x1220 stereo, 256x256x32 grid, 20 classes, bf16,
@@ -62,10 +70,11 @@ Phases, one line each:
      never; val/mIoU logged,
      best_val_mIoU kept; metrics.jsonl written; a second Trainer resumes
      at step 3;
- 11. K3 conv3x3 (implicit GEMM on 128-pixel tiles: in bf16 one TMA halo
-     load per 64 channels read by shifted descriptors for the nine taps,
-     wgmma on two consumer warpgroups; in fp32 TMA-staged taps and SIMT
-     fmaf) vs its plain version at the flagship decoder's ten 3x3 conv
+ 11. K3 conv3x3 (implicit GEMM on 128-pixel tiles: one TMA halo load per
+     128 bytes of channels; in bf16 read by shifted descriptors for the
+     nine taps, in fp32 by register fragments split into TF32 hi and lo,
+     three wgmmas per step against the weights' hi and lo; two consumer
+     warpgroups) vs its plain version at the flagship decoder's ten 3x3 conv
      shapes (batch 2 images, NCHW inputs, so the wrapper's packing
      copies are timed), in bf16 and fp32 (TF32 off), with the device
      times (CUDA-graph replays) of K3, the plain version and cuDNN's conv
@@ -78,9 +87,13 @@ Phases, one line each:
      `evaluate` at batch 2 (a ragged last batch) in fp32 (TF32 off) with
      decoder_conv_impl=xla and =pallas (counters set to 0 just before
      each): K3 launched 20 times under pallas and never under xla, the
-     fused lift and K2 once per batch under both, the
-     confusion counts of the two within 1e-5 of the counted voxels, the
-     padding counting 3 frames; then, after one untimed bf16 pass of
+     fused lift and K2 once per batch under both, K2 and K3 on their
+     3xTF32 kernels, the confusion counts of the two within 1e-5 of the
+     counted voxels, the padding counting 3 frames; then the flagship's
+     fp32 eval forward of one frame at full width under pallas on the
+     card and on the host's CPU (plain versions), each head within
+     tests/test_fullres_parity.py's tolerances (logits 5e-3, depth_pred
+     1e-3), with the seconds of each; then, after one untimed bf16 pass of
      each, bf16 ms/frame of xla and pallas in turns, and the eval CLI as a
      subprocess, which must print the metric table;
  13. K6 row_gather vs its plain version at bench_gather's five table shapes
@@ -104,12 +117,13 @@ Phases, one line each:
      the tree's projection and edge-case points, bf16 and fp32, NCHW and
      channels-last) and its forward + backward time; K2 at the 30x12x30
      bottleneck, (1, 4, 10,800, 1,350) @ (1, 1,350, 256), bf16 on the
-     wgmma kernel (mega padded to 1,352) beside the SIMT kernel it took
-     before and torch.sigmoid + torch.matmul, fp32 on SIMT; K4 at the b3
+     wgmma kernel and fp32 on the 3xTF32 one (mega padded to 1,352) beside
+     the SIMT kernel and torch.sigmoid + torch.matmul; K4 at the b3
      encoder's 22 stride-1 depthwise convs on a 480x640 image; K3 at the
      decoder's ten 3x3 convs on a 480x640 frame, bf16 and fp32, with
-     cuDNN's conv beside; each vs its plain version, with device times
-     (CUDA-graph replays) and bounds;
+     cuDNN's conv beside (fp32 K3's ten-conv sum must beat cuDNN fp32's);
+     each vs its plain version, with device times (CUDA-graph replays)
+     and bounds;
  17. TartanAir training: the shipped tartanair config (b3, feature 32,
      120x48x120, 14 classes) in bf16 with dw_conv_grad=pallas fits 3 steps
      at batch 1 on the tree, validating at each epoch end (counters set
@@ -120,9 +134,9 @@ Phases, one line each:
      for 2 steps, and again to resume at step 2;
  18. TartanAir evaluation of the tree's 2 val frames from a
      reference-schema .ckpt: fp32 (TF32 off) under decoder_conv_impl=xla
-     and =pallas (K3 under pallas only, confusion counts within
-     CONF_FLIP_FRAC), bf16 ms/frame in turns, and the eval CLI, which must
-     print the 14-class table;
+     and =pallas (K2 and K3 on their 3xTF32 kernels, K3 under pallas
+     only, confusion counts within CONF_FLIP_FRAC), bf16 ms/frame in
+     turns, and the eval CLI, which must print the 14-class table;
  19. the shipped occluded-head KITTI config at full width, bf16: 3 train
      steps at batch 1 (loss_occluded finite, the occluded head's
      parameters changed, the launch counts of phase 10) and an eval
@@ -135,11 +149,13 @@ Phases, one line each:
      and fp32, NCHW and channels-last, on the tree's projection and on
      edge-case points; K2 at the 15x9x15 bottleneck, (1, 4, 2,025, 196) @
      (1, 196, 800) and b7's 1,600 channels, bf16 on the wgmma kernel with
-     the logits and mega padded (neither stride is a 16-byte multiple)
-     beside the SIMT kernel and sigmoid + matmul, fp32 on SIMT; K4 at the
-     b4 and the b7 encoder's stride-1 depthwise convs on 480x640; K3 at the b4
-     decoder's ten 3x3 convs, bf16 and fp32 with cuDNN's beside; each vs
-     its plain version, with device times (CUDA-graph replays) and bounds;
+     the logits and mega padded (neither stride is a 16-byte multiple),
+     fp32 on the 3xTF32 one with the logits padded, beside the SIMT kernel
+     and sigmoid + matmul; K4 at the b4 and the b7 encoder's stride-1
+     depthwise convs on 480x640; K3 at the b4 decoder's ten 3x3 convs,
+     bf16 and fp32 with cuDNN's beside (fp32's ten-conv sum must beat
+     cuDNN fp32's); each vs its plain version, with device times
+     (CUDA-graph replays) and bounds;
  21. NYU training: the shipped b4 config (feature 100, 60x36x60, 12
      classes) in bf16 with dw_conv_grad=pallas fits 3 steps at batch 1 on
      the tree, validating on the test split at each epoch end, with phase
@@ -152,9 +168,10 @@ Phases, one line each:
      memory;
  22. NYU evaluation of the tree's 2 test frames at batch 2 (sample 0's
      disparity warps both) from a reference-schema .ckpt: fp32 (TF32 off)
-     under decoder_conv_impl=xla and =pallas (K3 under pallas only,
-     confusion counts within CONF_FLIP_FRAC), bf16 ms/frame in turns, and
-     the eval CLI, which must print the 12-class table;
+     under decoder_conv_impl=xla and =pallas (K2 and K3 on their 3xTF32
+     kernels, K3 under pallas only, confusion counts within
+     CONF_FLIP_FRAC), bf16 ms/frame in turns, and the eval CLI, which
+     must print the 12-class table;
  23. the shipped KITTI configs no other phase trains, at full width in bf16
      with dw_conv_grad=pallas: K4 vs its plain version at the b7 encoder's
      stride-1 depthwise convs on 370x1220 (bench_dwconv's method, with its
@@ -232,6 +249,7 @@ import numpy as np
 from occdepth_tpu_torch.scripts.bench_timing import (
     BF16_FLOPS,
     FP32_FLOPS,
+    FP32_TC_FLOPS,
     bound_ms,
     device_ms,
     gpu_line,
@@ -296,6 +314,72 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke: {what}")
+
+
+def phase_selftest(dev) -> dict:
+    """2b. csrc/hopper_selftest.cu before any kernel runs: the bf16 TMA
+    swizzle and shifted-descriptor wgmma (conv3x3's halo reads), the
+    ldmatrix.trans + RS wgmma of bf16 K2, and the TF32 SS and RS products
+    of fp32 K2 and K3 at N = 48, 96, 128, each against the product
+    computed on the host from the same inputs; then the TF32 split kernel
+    against its plain version, bit for bit."""
+    import torch
+
+    from occdepth_tpu_torch.ops import cuda_lib
+    from occdepth_tpu_torch.ops.tf32 import split_tf32_packed, to_tf32_rna
+
+    lib, stream = cuda_lib.library(), torch.cuda.current_stream().cuda_stream
+    g = torch.Generator(device=dev).manual_seed(2)
+    worst = 0.0
+
+    def held(what, d, ref, rtol=1e-5):
+        nonlocal worst
+        err = (d.cpu() - ref).abs().max().item()
+        rel = err / ref.abs().max().item()
+        worst = max(worst, rel)
+        check(rel <= rtol, f"hopper self-test {what}: error {rel:.3e} x "
+                           f"max|ref| > {rtol}")
+
+    for shift, rows in ((0, 8), (3, 8), (0, 24), (2, 24)):
+        a = torch.randn(8 * rows + 8, 64, device=dev, generator=g).bfloat16()
+        b = torch.randn(16, 64, device=dev, generator=g).bfloat16()
+        dump = torch.empty(64, 64, dtype=torch.bfloat16, device=dev)
+        d = torch.empty(64, 16, device=dev)
+        cuda_lib.check(lib.occ_hopper_selftest(
+            a.data_ptr(), b.data_ptr(), dump.data_ptr(), d.data_ptr(), shift,
+            rows, stream), "hopper_selftest")
+        torch.cuda.synchronize()
+        m = torch.arange(64)
+        ref = (a.cpu()[(m // 8) * rows + shift + m % 8].float()
+               @ b.cpu().float().t())
+        held(f"bf16 SS shift {shift} group {rows}", d, ref)
+    at = torch.randn(64, 64, device=dev, generator=g).bfloat16()
+    b = torch.randn(256, 64, device=dev, generator=g).bfloat16()
+    d = torch.empty(64, 256, device=dev)
+    cuda_lib.check(lib.occ_hopper_selftest_rs(
+        at.data_ptr(), b.data_ptr(), d.data_ptr(), stream),
+        "hopper_selftest_rs")
+    torch.cuda.synchronize()
+    held("bf16 RS", d, at.cpu().float().t() @ b.cpu().float().t())
+    for n in (48, 96, 128):
+        for rs in (0, 1):
+            a = to_tf32_rna(torch.randn(64, 32, device=dev, generator=g))
+            b = to_tf32_rna(torch.randn(n, 32, device=dev, generator=g))
+            d = torch.empty(64, n, device=dev)
+            cuda_lib.check(lib.occ_hopper_selftest_tf32(
+                a.data_ptr(), b.data_ptr(), d.data_ptr(), n, rs, stream),
+                "hopper_selftest_tf32")
+            torch.cuda.synchronize()
+            held(f"TF32 {'RS' if rs else 'SS'} n={n}", d,
+                 a.cpu() @ b.cpu().t())
+    x = torch.randn(2, 256, 1350, device=dev, generator=g)
+    split = split_tf32_packed(x, 1352)
+    check(torch.equal(split.cpu().view(torch.int32),
+                      split_tf32_packed(x.cpu(), 1352).view(torch.int32)),
+          "TF32 split kernel differs from its plain version")
+    log("hopper_selftest", cases="bf16 SS x4, bf16 RS, TF32 SS/RS x "
+        "n=48,96,128, TF32 split", max_rel_err=worst, rtol=1e-5)
+    return {"max_rel_err": worst}
 
 
 def phase_k1(dev) -> dict:
@@ -487,6 +571,7 @@ def phase_tiny(dev) -> None:
         tiny_err = max((out_gpu[k].cpu() - out_cpu[k]).abs().max().item()
                        for k in out_cpu)
         n = read_counts()
+        check_fp32_tensor_cores(f"tiny {name}", n)
         log("tiny", config=name, keys=",".join(sorted(out_cpu)),
             max_abs_err=tiny_err, atol=TINY_ATOL,
             lift_launches=n["flosp_stereo_lift"],
@@ -500,9 +585,15 @@ def phase_tiny(dev) -> None:
               f"tiny {name} outputs {sorted(out_cpu)}")
 
 
+K2_PATH = {"bfloat16": "wgmma_bf16", "float32": "wgmma_tf32"}
+
+
 def phase_k2(dev) -> dict:
-    """4. K2, the four relations in one call, vs its plain version; in
-    bf16 also torch.sigmoid + matmul's time (library_ms)."""
+    """4. K2, the four relations in one call, vs its plain version on the
+    tensor cores in both dtypes (bf16 wgmma, fp32 3xTF32 wgmma: per-path
+    counters), with device times beside the SIMT kernel on the same
+    operands (k2_simt, the route fp32 took before) and torch.sigmoid +
+    matmul (library_ms); fp32 must beat the SIMT kernel."""
     import torch
 
     from occdepth_tpu_torch.ops.crp_matmul import (
@@ -520,36 +611,41 @@ def phase_k2(dev) -> dict:
                              generator=g).to(dtype)
         mega = torch.randn(BATCH, Cc, M, device=dev, generator=g).to(dtype)
         args = (logits.transpose(2, 3), mega.transpose(1, 2))
-        path = "wgmma" if wgmma_path(*args) else "simt"
-        check(path == ("wgmma" if dtype == torch.bfloat16 else "simt"),
-              f"K2 {name} took the {path} kernel")
+        check(wgmma_path(*args), f"K2 {name} did not take a tensor-core "
+                                 "kernel")
         ref = crp_relation_matmul_reference(*args)
+        before = crp_relation_matmul.paths[K2_PATH[name]]
         err = (crp_relation_matmul(*args) - ref).abs().max().item()
+        check(crp_relation_matmul.paths[K2_PATH[name]] == before + 1,
+              f"K2 {name} launched no {K2_PATH[name]} kernel")
         tol = K2_RTOL * ref.abs().max().item()
+        simt_err = (k2_simt(*args) - ref).abs().max().item()
         ms = device_ms(lambda: crp_relation_matmul(*args))
         plain = device_ms(lambda: crp_relation_matmul_reference(*args))
+        simt = device_ms(lambda: k2_simt(*args))
+        lib = device_ms(lambda: torch.sigmoid(args[0]) @ args[1].unsqueeze(1))
         es = logits.element_size()
         b_ms, kind = bound_ms(
             BATCH * (R * Nv * M * es + M * Cc * es + R * Nv * Cc * 4),
             2 * BATCH * R * Nv * M * Cc,
-            BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
-        log("k2", dtype=name, kernel=path,
+            BF16_FLOPS if dtype == torch.bfloat16 else FP32_TC_FLOPS)
+        log("k2", dtype=name, kernel=K2_PATH[name],
             shape=f"{BATCH}x{R}x({Nv},{M})@({M},{Cc})", max_abs_err=err,
-            tol=f"{tol:.3e}", ms=f"{ms:.5f}", plain_ms=f"{plain:.5f}",
-            bound_ms=f"{b_ms:.5f}", bound_by=kind,
+            simt_err=simt_err, tol=f"{tol:.3e}", ms=f"{ms:.5f}",
+            plain_ms=f"{plain:.5f}", simt_ms=f"{simt:.5f}",
+            library_ms=f"{lib:.5f}", bound_ms=f"{b_ms:.5f}", bound_by=kind,
             bound_share=f"{b_ms / ms:.3f}")
         check(err <= tol, f"K2 {name} error {err} > {tol}")
+        check(simt_err <= tol, f"K2 SIMT {name} error {simt_err} > {tol}")
         check(ms >= b_ms, f"K2 {name} took {ms} ms, under its bound {b_ms}")
-        if dtype == torch.bfloat16:  # the main path's; fp32 stays SIMT
+        check(ms < simt, f"K2 {name} {ms} ms, not faster than the SIMT "
+                         f"kernel {simt}")
+        if dtype == torch.bfloat16:
             check(ms < plain, f"K2 bf16 {ms} ms, not faster than its plain "
                               f"version {plain}")
-        res[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+        res[name] = {"max_abs_err": err, "kernel": K2_PATH[name], "ms": ms,
+                     "plain_ms": plain, "simt_ms": simt, "library_ms": lib,
                      "bound_ms": b_ms, "bound_by": kind}
-        if dtype == torch.bfloat16:
-            res[name]["library_ms"] = device_ms(
-                lambda: torch.sigmoid(args[0]) @ args[1].unsqueeze(1))
-            log("k2_library", dtype=name, what="torch.sigmoid + matmul",
-                ms=f"{res[name]['library_ms']:.5f}")
         del logits, mega, ref
     return res
 
@@ -802,11 +898,33 @@ def reset_counts() -> None:
 
     for fn in kernel_counters().values():
         fn.launches = 0
+        for key in getattr(fn, "paths", {}):
+            fn.paths[key] = 0
     dw_filter_grad.copies = 0
 
 
 def read_counts() -> dict:
     return {name: fn.launches for name, fn in kernel_counters().items()}
+
+
+def read_paths() -> dict:
+    """K2's and K3's launches by kernel: {"k2": {"wgmma_bf16": n,
+    "wgmma_tf32": n, "simt": n}, "k3": {"wgmma_bf16": n, "wgmma_tf32":
+    n}}."""
+    from occdepth_tpu_torch.ops.conv2d_shift import conv3x3
+    from occdepth_tpu_torch.ops.crp_matmul import crp_relation_matmul
+
+    return {"k2": dict(crp_relation_matmul.paths), "k3": dict(conv3x3.paths)}
+
+
+def check_fp32_tensor_cores(tag: str, launches: dict) -> None:
+    """After an fp32 run (counters set to 0 before it): every K2 and K3
+    launch went to the 3xTF32 tensor-core kernels."""
+    paths = read_paths()
+    check(paths["k2"]["wgmma_tf32"] == launches["crp_relation_matmul"]
+          and paths["k3"]["wgmma_tf32"] == launches["conv3x3"],
+          f"{tag}: fp32 K2/K3 launches by path {paths}, of "
+          f"{launches['crp_relation_matmul']}/{launches['conv3x3']}")
 
 
 def fit_and_check(cfg, train_ds, val_ds, logdir, expected, tag,
@@ -966,14 +1084,17 @@ def k3_at_shapes(dev, shapes, dtype, g, tag: str) -> dict:
     within K3_RTOL, with device times (CUDA-graph replays) of K3, the plain
     version and cuDNN's conv, the bound, TFLOP/s and bound share; K3 must
     not read under its bound (a kernel that skipped work would).  Returns
-    the sums over the shapes."""
+    the sums over the shapes.  Both dtypes run on the tensor cores (fp32 as
+    three TF32 products: its bound is at FP32_TC_FLOPS), checked by the
+    per-path counter."""
     import torch
     import torch.nn.functional as F
 
     from occdepth_tpu_torch.ops.conv2d_shift import conv3x3, conv3x3_reference
 
     name = str(dtype).replace("torch.", "")
-    peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_TC_FLOPS
+    path = "wgmma_bf16" if dtype == torch.bfloat16 else "wgmma_tf32"
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
            "bound_ms": 0.0, "max_abs_err": 0.0, "max_rel_err": 0.0}
     kinds = set()
@@ -985,8 +1106,11 @@ def k3_at_shapes(dev, shapes, dtype, g, tag: str) -> dict:
         b = 0.1 * torch.randn(Co, device=dev, generator=g)
         # the plain version in fp32 on the same (bf16-rounded) inputs
         ref = conv3x3_reference(x.float(), w.float(), b)
+        before = conv3x3.paths[path]
         out = conv3x3(x, w, b)
         torch.cuda.synchronize()
+        check(conv3x3.paths[path] == before + 1,
+              f"K3 {name} ({Ci},{H},{W})->{Co} launched no {path} kernel")
         scale = ref.abs().max().item()
         err = (out.float() - ref).abs().max().item()
         tol = K3_RTOL[name] * scale
@@ -1023,6 +1147,14 @@ def k3_at_shapes(dev, shapes, dtype, g, tag: str) -> dict:
         **{k: (f"{v:.4f}" if isinstance(v, float) and "err" not in k
                else v) for k, v in tot.items()})
     return tot
+
+
+def k3_beats_cudnn_fp32(tot: dict, where: str) -> None:
+    """At 480x640 cuDNN's fp32 decoder convs (TF32 off) are K3's yardstick:
+    the 3xTF32 kernel's sum over the ten must be the faster."""
+    check(tot["ms"] < tot["library_ms"],
+          f"{where} K3 fp32 over the ten convs {tot['ms']} ms, not faster "
+          f"than cuDNN fp32 {tot['library_ms']}")
 
 
 def phase_k3(dev) -> dict:
@@ -1062,6 +1194,65 @@ def phase_k3(dev) -> dict:
     return res
 
 
+# tests/test_fullres_parity.py's KITTI_HEADS tolerances: logits 5e-3,
+# depth_pred 1e-3 (absolute)
+FULLRES_ATOL = {"ssc_logit": 5e-3, "occ_logit": 5e-3, "P_logits": 5e-3,
+                "depth_pred": 1e-3}
+
+
+def fullres_fp32_forward(dev, cfg) -> dict:
+    """12b. The flagship's fp32 eval forward of one frame at full width
+    (370x1220 stereo, 256x256x32, seeded random weights, one synthetic
+    frame) under decoder_conv_impl=pallas: on the card (the fused lift,
+    3xTF32 K2 once and K3 ten times) and on the host's CPU (the plain
+    versions), each head within FULLRES_ATOL; seconds of each."""
+    import torch
+
+    from occdepth_tpu_torch.data.batch import make_synthetic_batch
+    from occdepth_tpu_torch.models import OccDepthModel
+    from occdepth_tpu_torch.testing import randomize_weights
+
+    cfg = dataclasses.replace(cfg, decoder_conv_impl="pallas",
+                              compute_dtype="float32")
+    model = randomize_weights(OccDepthModel(cfg), seed=0).eval()
+    batch = make_synthetic_batch(cfg, batch_size=1, seed=31)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        out_cpu = model({k: torch.from_numpy(v) for k, v in batch.items()})
+    cpu_s = time.perf_counter() - t0
+    model.to(dev)
+    with torch.inference_mode():  # the first pass pays cuDNN's plans
+        model({k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        out_gpu = model({k: torch.from_numpy(v).to(dev)
+                         for k, v in batch.items()})
+    torch.cuda.synchronize()
+    gpu_s = time.perf_counter() - t0
+    n = read_counts()
+    check_fp32_tensor_cores("fullres fp32 forward", n)
+    check(n["conv3x3"] == 10 and n["crp_relation_matmul"] == 1
+          and n["flosp_stereo_lift"] == 1,
+          f"fullres fp32 forward launches {n}")
+    check(set(FULLRES_ATOL) <= set(out_cpu),
+          f"fullres fp32 forward heads {sorted(out_cpu)}")
+    errs = {k: (out_gpu[k].cpu() - out_cpu[k]).abs().max().item()
+            for k in FULLRES_ATOL}
+    log("fullres_fp32", heads=",".join(FULLRES_ATOL),
+        **{f"{k}_err": v for k, v in errs.items()},
+        **{f"{k}_scale": out_cpu[k].abs().max().item() for k in FULLRES_ATOL},
+        cpu_s=f"{cpu_s:.1f}", gpu_s=f"{gpu_s:.3f}",
+        cpu_threads=torch.get_num_threads())
+    for k, err in errs.items():
+        check(err <= FULLRES_ATOL[k], f"fullres fp32 {k}: card vs CPU "
+                                      f"error {err} > {FULLRES_ATOL[k]}")
+    del model, out_cpu, out_gpu
+    torch.cuda.empty_cache()
+    return {"max_abs_err": errs, "cpu_s": cpu_s, "gpu_s": gpu_s}
+
+
 def phase_eval(dev, smi: str) -> dict:
     """12. The eval path on a synthetic disk tree, xla vs pallas."""
     import numpy as np
@@ -1097,6 +1288,7 @@ def phase_eval(dev, smi: str) -> dict:
                              torch_ckpt=ckpt)
             torch.cuda.synchronize()
             launches[impl] = read_counts()
+            check_fp32_tensor_cores(f"eval fp32 {impl}", launches[impl])
             runs[impl] = stats
             log("eval_fp32", impl=impl, frames=stats["n_frames"],
                 mIoU=f"{stats['iou_ssc_mean']:.6f}", IoU=f"{stats['iou']:.6f}",
@@ -1132,6 +1324,7 @@ def phase_eval(dev, smi: str) -> dict:
                   f"{impl}: a stat is not finite")
         check(flips <= CONF_FLIP_FRAC * counted,
               f"pallas vs xla confusion differs in {flips} voxels")
+        fullres = fullres_fp32_forward(dev, cfg)
 
         # bf16 eval device time, in turns, after one untimed bf16 pass of
         # each (the first pass of a path pays one-time costs, cuDNN plans
@@ -1178,7 +1371,7 @@ def phase_eval(dev, smi: str) -> dict:
     finally:
         shutil.rmtree(base, ignore_errors=True)
     return {"launches": launches["pallas"], "times": times, "peaks": peaks,
-            "flips": flips, "counted": counted}
+            "flips": flips, "counted": counted, "fullres": fullres}
 
 
 def bits(t):
@@ -1493,10 +1686,12 @@ def lift_at_shape(dev, rig, hw, C, cases, tag, edge_seed, map_seed) -> dict:
 
 def k2_at_shape(dev, N, M, C, padded, tag, seed) -> dict:
     """K2 at batch 1, (1, R, N, M) @ (1, M, C) in the CRP's layout, vs its
-    plain version in bf16 (the wgmma kernel, with the copies `padded`
-    names: "logits", "mega") and fp32 (SIMT); device times of the kernel
-    and the plain version, and in bf16 of the SIMT kernel (the route
-    before the padding) and torch.sigmoid + torch.matmul."""
+    plain version on the tensor cores in bf16 (wgmma) and fp32 (3xTF32
+    wgmma; per-path counters), with the padded copies `padded` names for
+    each dtype ("logits", "mega"); device times of the kernel, the plain
+    version, the SIMT kernel (the route before the padding, and fp32's
+    before the 3xTF32 kernel) and torch.sigmoid + torch.matmul; the
+    tensor-core kernel must beat the SIMT one."""
     import torch
 
     from occdepth_tpu_torch.ops.crp_matmul import (
@@ -1514,33 +1709,35 @@ def k2_at_shape(dev, N, M, C, padded, tag, seed) -> dict:
         logits = torch.randn(1, R, M, N, device=dev, generator=g).to(dtype)
         mega = torch.randn(1, C, M, device=dev, generator=g).to(dtype)
         args = (logits.transpose(2, 3), mega.transpose(1, 2))
-        path = "wgmma" if wgmma_path(*args) else "simt"
-        check(path == ("wgmma" if dtype == torch.bfloat16 else "simt"),
-              f"{tag} {name} took the {path} kernel")
+        check(wgmma_path(*args), f"{tag} {name} did not take a tensor-core "
+                                 "kernel")
         pads = {"logits": not tma_reads(args[0], 2),
                 "mega": not tma_reads(args[1], 1)}
-        check({k for k, v in pads.items() if v} == set(padded),
-              f"{tag}: padded copies {pads}, expected {padded}")
+        check({k for k, v in pads.items() if v} == set(padded[name]),
+              f"{tag} {name}: padded copies {pads}, expected "
+              f"{padded[name]}")
         ref = crp_relation_matmul_reference(*args)
         tol = K2_RTOL * ref.abs().max().item()
+        before = crp_relation_matmul.paths[K2_PATH[name]]
         err = (crp_relation_matmul(*args) - ref).abs().max().item()
-        r = {"max_abs_err": err, "kernel": path,
+        check(crp_relation_matmul.paths[K2_PATH[name]] == before + 1,
+              f"{tag} {name} launched no {K2_PATH[name]} kernel")
+        simt_err = (k2_simt(*args) - ref).abs().max().item()
+        check(simt_err <= tol, f"{tag} SIMT {name} error {simt_err} > {tol}")
+        r = {"max_abs_err": err, "kernel": K2_PATH[name],
              "ms": device_ms(lambda: crp_relation_matmul(*args)),
              "plain_ms": device_ms(
-                 lambda: crp_relation_matmul_reference(*args))}
+                 lambda: crp_relation_matmul_reference(*args)),
+             "simt_ms": device_ms(lambda: k2_simt(*args)),
+             "library_ms": device_ms(
+                 lambda: torch.sigmoid(args[0]) @ args[1].unsqueeze(1))}
         es = logits.element_size()
         r["bound_ms"], r["bound_by"] = bound_ms(
             R * N * M * es + M * C * es + R * N * C * 4,
             2 * R * N * M * C,
-            BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
-        if dtype == torch.bfloat16:
-            simt_err = (k2_simt(*args) - ref).abs().max().item()
-            check(simt_err <= tol, f"{tag} SIMT bf16 error {simt_err} > {tol}")
-            r["simt_ms"] = device_ms(lambda: k2_simt(*args))
-            r["library_ms"] = device_ms(
-                lambda: torch.sigmoid(args[0]) @ args[1].unsqueeze(1))
+            BF16_FLOPS if dtype == torch.bfloat16 else FP32_TC_FLOPS)
         log(tag, dtype=name, shape=f"1x{R}x({N},{M})@({M},{C})",
-            padded=",".join(padded) or "none",
+            padded=",".join(padded[name]) or "none",
             tol=f"{tol:.3e}", **{k: (f"{v:.5f}" if isinstance(v, float)
                                      and k != "max_abs_err" else v)
                                  for k, v in r.items()},
@@ -1548,6 +1745,9 @@ def k2_at_shape(dev, N, M, C, padded, tag, seed) -> dict:
         check(err <= tol, f"{tag} {name} error {err} > {tol}")
         check(r["ms"] >= r["bound_ms"],
               f"{tag} {name} {r['ms']} ms under its bound")
+        check(r["ms"] < r["simt_ms"], f"{tag} {name} {r['ms']} ms, not "
+                                      f"faster than the SIMT kernel "
+                                      f"{r['simt_ms']}")
         k2[name] = r
         del logits, mega, ref
     return k2
@@ -1623,8 +1823,9 @@ def phase_ta_kernels(dev, sample) -> dict:
                               (torch.float32, "nchw", "edges")),
         "ta_lift", edge_seed=16, map_seed=20)}
     # K2 at M = 1,350: bf16 on wgmma (mega padded), fp32 on SIMT
-    res["k2"] = k2_at_shape(dev, N // 64, 1350, 256, ("mega",), "ta_k2",
-                            seed=17)
+    res["k2"] = k2_at_shape(dev, N // 64, 1350, 256,
+                            {"bfloat16": ("mega",), "float32": ("mega",)},
+                            "ta_k2", seed=17)
     shapes = flagship_dw_shapes(dev, TA_HW)
     check(len(shapes) == 22, f"{len(shapes)} stride-1 dw convs at 480x640")
     res["k4"] = k4_at_shapes(dev, shapes, "ta_k4", seed=18)
@@ -1634,6 +1835,7 @@ def phase_ta_kernels(dev, sample) -> dict:
     res["k3"] = {str(dt).replace("torch.", ""): k3_at_shapes(
         dev, shapes, dt, g3, "ta_k3") for dt in (torch.bfloat16,
                                                  torch.float32)}
+    k3_beats_cudnn_fp32(res["k3"]["float32"], "TartanAir")
     torch.cuda.empty_cache()
     return res
 
@@ -1720,6 +1922,7 @@ def phase_ta_eval(dev, smi: str, base: str) -> dict:
                               torch_ckpt=ckpt)
         torch.cuda.synchronize()
         launches[impl] = read_counts()
+        check_fp32_tensor_cores(f"ta_eval_fp32 {impl}", launches[impl])
         log("ta_eval_fp32", impl=impl, frames=runs[impl]["n_frames"],
             mIoU=f"{runs[impl]['iou_ssc_mean']:.6f}",
             loss=f"{runs[impl]['losses']['loss']:.5f}",
@@ -1866,10 +2069,10 @@ def phase_nyu_kernels(dev, sample) -> dict:
                                     "nyu_lift_b7", edge_seed=21,
                                     map_seed=60)}
     n_crp, m_crp = 15 * 9 * 15, 7 * 4 * 7
-    res["k2"] = k2_at_shape(dev, n_crp, m_crp, 800, ("logits", "mega"),
-                            "nyu_k2", seed=22)
-    res["k2_b7"] = k2_at_shape(dev, n_crp, m_crp, 1600, ("logits", "mega"),
-                               "nyu_k2_b7", seed=23)
+    pads = {"bfloat16": ("logits", "mega"), "float32": ("logits",)}
+    res["k2"] = k2_at_shape(dev, n_crp, m_crp, 800, pads, "nyu_k2", seed=22)
+    res["k2_b7"] = k2_at_shape(dev, n_crp, m_crp, 1600, pads, "nyu_k2_b7",
+                               seed=23)
     for key, backbone, seed in (("k4", "tf_efficientnet_b4_ns", 24),
                                 ("k4_b7", "tf_efficientnet_b7_ns", 26)):
         shapes = flagship_dw_shapes(dev, NYU_HW, backbone)
@@ -1880,6 +2083,7 @@ def phase_nyu_kernels(dev, sample) -> dict:
     res["k3"] = {str(dt).replace("torch.", ""): k3_at_shapes(
         dev, shapes, dt, g3, "nyu_k3") for dt in (torch.bfloat16,
                                                   torch.float32)}
+    k3_beats_cudnn_fp32(res["k3"]["float32"], "NYU")
     torch.cuda.empty_cache()
     return res
 
@@ -2012,6 +2216,7 @@ def phase_nyu_eval(dev, smi: str, base: str) -> dict:
                               torch_ckpt=ckpt)
         torch.cuda.synchronize()
         launches[impl] = read_counts()
+        check_fp32_tensor_cores(f"nyu_eval_fp32 {impl}", launches[impl])
         log("nyu_eval_fp32", impl=impl, frames=runs[impl]["n_frames"],
             mIoU=f"{runs[impl]['iou_ssc_mean']:.6f}",
             loss=f"{runs[impl]['losses']['loss']:.5f}",
@@ -2126,7 +2331,8 @@ def phase_kitti_configs(dev, smi: str) -> dict:
     res["lift_highcap"] = lift_at_shape(
         dev, rig, tuple(hcfg.img_shape), HIGHCAP_C, cases,
         "kitti_lift_highcap", edge_seed=28, map_seed=80)
-    res["k2_highcap"] = k2_at_shape(dev, 4096, 512, 8 * HIGHCAP_C, (),
+    res["k2_highcap"] = k2_at_shape(dev, 4096, 512, 8 * HIGHCAP_C,
+                                    {"bfloat16": (), "float32": ()},
                                     "kitti_k2_highcap", seed=29)
     torch.cuda.empty_cache()
     for name, tag, losses in KITTI_CONFIGS:
@@ -3096,6 +3302,7 @@ def main() -> None:
     native_path, native_s = native_ext.build()
     log("build_native", seconds=f"{native_s:.2f}", cached=native_s == 0.0,
         library=native_path)
+    phase_selftest(dev)
 
     # ---- 3, 3b, 4. K1, the fused lift and K2 at the main path's shapes ----
     cfg, pipe, calib = serving_setup(BATCH)
@@ -3311,7 +3518,8 @@ def main() -> None:
              shape="(1,4,4096,512)@(1,512,512), the highcap configs' CRP")
              for name, r in configs["k2_highcap"].items()},
          "timed": "the four relations at batch 2 in one call, (4096,512)@"
-                  "(512,256) each, bf16 (wgmma); fp32 (SIMT) beside"},
+                  "(512,256) each, bf16 (wgmma); fp32 (3xTF32 wgmma) "
+                  "beside; simt_ms: the SIMT kernel on the same operands"},
         {"name": "dw_filter_grad", "route": "cuda",
          "source": "occdepth_tpu_torch/csrc/dw_filter_grad.cu",
          "replaces": "occdepth_tpu/ops/dw_conv.py:99",
@@ -3358,7 +3566,9 @@ def main() -> None:
                                   "channels out) on a 480x640 frame, 2 images")
                  for name, r in nyu["k3"].items()},
          "timed": "sum over the flagship decoder's ten 3x3 convs at batch 2 "
-                  "images (one eval frame), bf16; fp32 (TF32 off) beside"},
+                  "images (one eval frame), bf16; fp32 (3xTF32 wgmma; "
+                  "cuDNN with TF32 off) beside",
+         "fullres_fp32_forward": evaluation["fullres"]},
         {"name": "row_gather", "route": "cuda",
          "source": "occdepth_tpu_torch/csrc/row_gather.cu",
          "replaces": "occdepth_tpu/scripts/bench_gather.py:111",

@@ -42,12 +42,38 @@
 //     32-byte sectors, so no staging is needed.
 // (The wrapper hands mega that TMA cannot read, e.g. TartanAir's M = 1,350
 // with a 2,700-byte stride, as a copy padded to M rounded up to 8.)
-// Any other logits layout or fp32 operands: `crp_relation_matmul_kernel`, a
-// shared-memory tiled GEMM on the CUDA cores (64x64 output tiles, k-steps
-// of 16, a 4x4 register micro-tile per thread, sigmoid folded into the
-// LHS staging), which computes the exact fp32 product as the JAX kernel
-// does.  Every operand is addressed through (batch, relation, row, col)
-// strides; mega's relation stride is 0 (shared by the relations).
+//
+// fp32 operands, the same layout: `crp_tf32_kernel`, 3xTF32 on wgmma.
+//   * What bounds it: at the KITTI shape 8.6 GFLOP of fp32 product, done
+//     as three TF32 products (hi.hi + hi.lo + lo.hi, hopper.cuh): at 495
+//     TFLOP/s of TF32 that is 0.052 ms, against 0.030 ms of bytes (fp32
+//     logits 67 MB, output 34 MB), so the tensor cores bound it; on the
+//     CUDA cores (67 TFLOP/s) the same work needs 0.128 ms.
+//   * A = sigmoid(P) through registers again: TF32 has no ldmatrix form
+//     (it moves 16-bit halves), so each thread reads its fragments with
+//     8-byte shared loads, the A rows permuted so a load brings two rows
+//     (consume_tf32), takes the sigmoid in fp32 and splits it into TF32
+//     hi and lo (round to nearest) in registers.
+//   * B = mega: wgmma reads TF32 B K-major only, and mega's (C, M) memory
+//     is that.  It is split once per call, not per tile: the wrapper's
+//     `occ_split_tf32` (tf32_split.cu) writes a (2, B, C, Mp) hi/lo buffer
+//     (2 MB at KITTI), M padded to 16 bytes, read by TMA in 32-mega-voxel
+//     chunks.
+//   * A CTA owns 128 voxels (two consumer warpgroups, m64n128 each) and
+//     128 channels; a 4-stage ring of 48 KB (four 32-voxel logits boxes,
+//     mega hi and lo); three wgmmas per 8-deep k step.  The tensor cores
+//     round each accumulation toward zero, so each 32-mega-voxel chunk
+//     accumulates apart and is added into round-to-nearest fp32 registers
+//     (the 128 channels leave room for both sets beside the split A).
+//   * Accuracy: within ~2^-21 per product of the fp32 product, as the
+//     JAX kernel's fp32 product (the 3xTF32 error: the dropped lo.lo term
+//     and each split's 2^-22).
+// Any other logits layout: `crp_relation_matmul_kernel`, a shared-memory
+// tiled GEMM on the CUDA cores (64x64 output tiles, k-steps of 16, a 4x4
+// register micro-tile per thread, sigmoid folded into the LHS staging),
+// which computes the exact fp32 product as the JAX kernel does.  Every
+// operand is addressed through (batch, relation, row, col) strides;
+// mega's relation stride is 0 (shared by the relations).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -57,7 +83,7 @@ namespace {
 
 using namespace hopper;
 
-// ---- the SIMT path: fp32 operands, or layouts TMA cannot read ----
+// ---- the SIMT path: logits layouts that are not voxel-contiguous ----
 
 constexpr int BM = 64;   // output rows (voxels) per block
 constexpr int BN = 64;   // output cols (channels) per block
@@ -368,13 +394,225 @@ int launch_wgmma(const void* p, const void* g, float* out, long long B,
   return (int)cudaGetLastError();
 }
 
+// ---- the 3xTF32 wgmma path: fp32, logits N-contiguous ----
+
+constexpr int F_TILE_C = 128;                  // channels per CTA
+constexpr int F_KCH = 32;                      // mega-voxels per chunk
+constexpr int F_STAGES = 4;
+constexpr int F_A_BOX = 32 * F_KCH * 4;        // 32 voxels: 4 KB
+constexpr int F_A_BYTES = 2 * F_A_BOX;         // a warpgroup's 64 voxels
+constexpr int F_B_BYTES = F_TILE_C * F_KCH * 4;  // mega's hi (or lo): 16 KB
+constexpr int F_STAGE_BYTES = 2 * F_A_BYTES + 2 * F_B_BYTES;  // 48 KB
+constexpr int F_SMEM = 1024 + F_STAGES * F_STAGE_BYTES + 2 * F_STAGES * 8;
+
+// The fp32 kernel's sigmoid: __expf and an approximate reciprocal, within
+// a few ulp of 1 / (1 + e^-x) (each within 2 ulp; __expf adds ~|x| 2^-22
+// relative) at a third of the instructions of `sigmoid`: with 128-channel
+// tiles the sigmoid and split of A, once per element and chunk, would
+// otherwise outlast the chunk's wgmmas.
+__device__ __forceinline__ float sigmoid_approx(float x) {
+  return __fdividef(1.f, 1.f + __expf(-x));
+}
+
+// The consumer warpgroups of the fp32 kernel.  Warp w of warpgroup wg
+// reads the 32-voxel logits box w / 2 of its 64 voxels; its A rows g and
+// g + 8 (g = lane / 4) are the voxel pair 2 P, 2 P + 1 of that box, P =
+// 8 (g % 2) + 4 (g / 4) + 2 (w % 2) + (g / 2) % 2, so each 8-byte shared
+// load brings both rows at one k, and the 16 loads of a half-warp fill
+// the 32 banks (the 128B swizzle XORs the 16-byte chunk P / 2 with k % 8).
+// Per 8-deep k step: three wgmmas hi.hi, hi.lo, lo.hi on the chunk's mega
+// hi and lo tiles, accumulated in `part`; once a chunk's wgmmas have
+// completed, `part` is added into `acc` in round-to-nearest fp32 and
+// restarted, because the tensor cores round each accumulation toward
+// zero, a bias that would grow with M (see conv3x3.cu).
+__device__ __forceinline__ void consume_tf32(const unsigned char* smem,
+                                             uint32_t bars, int kc_total,
+                                             int ctid, int n0, int c0, int N,
+                                             int C, float* __restrict__ ob,
+                                             long long o_sn, long long o_sc) {
+  const int wg = ctid >> 7, warp = (ctid >> 5) & 3, lane = ctid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int P = 8 * (g & 1) + 4 * (g >> 2) + 2 * (warp & 1) + ((g >> 1) & 1);
+  const int a_off = wg * F_A_BYTES + (warp >> 1) * F_A_BOX + (P & 1) * 8;
+  float acc[F_TILE_C / 2], part[F_TILE_C / 2];
+#pragma unroll
+  for (int i = 0; i < F_TILE_C / 2; ++i) acc[i] = part[i] = 0.f;
+
+  // chunk kc's A fragments: the logits of rows (g, g + 8) at k = 8 j + t
+  // and + 4, their sigmoid split into TF32 hi and lo
+  auto prep = [&](int kc, uint32_t (&hi)[4][4], uint32_t (&lo)[4][4]) {
+    const int s = kc % F_STAGES;
+    mbar_wait(bars + 8 * s, (kc / F_STAGES) & 1);
+    const unsigned char* a_s = smem + s * F_STAGE_BYTES + a_off;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int k = 8 * j + t + 4 * h;
+        const float2 x = *reinterpret_cast<const float2*>(
+            a_s + k * 128 + (((P >> 1) ^ (k & 7)) << 4));
+        split_tf32(sigmoid_approx(x.x), hi[j][2 * h], lo[j][2 * h]);
+        split_tf32(sigmoid_approx(x.y), hi[j][2 * h + 1], lo[j][2 * h + 1]);
+      }
+    }
+  };
+  auto mma = [&](int kc, const uint32_t (&hi)[4][4],
+                 const uint32_t (&lo)[4][4]) {
+    const uint32_t b_hi =
+        smem_u32(smem + (kc % F_STAGES) * F_STAGE_BYTES + 2 * F_A_BYTES);
+    const uint32_t b_lo = b_hi + F_B_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint64_t dh = desc_sw128(b_hi + 32 * j);
+      const uint64_t dl = desc_sw128(b_lo + 32 * j);
+      wgmma_tf32_rs(part, lo[j], dh, j > 0);  // a chunk restarts `part`
+      wgmma_tf32_rs(part, hi[j], dl, 1);
+      wgmma_tf32_rs(part, hi[j], dh, 1);
+    }
+    wgmma_commit();
+  };
+  // once chunk kc's wgmmas are done: its stage goes back to the producer,
+  // its sum into `acc`
+  auto retire = [&](int kc) {
+    wgmma_wait<0>();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bars + 8 * (F_STAGES + kc % F_STAGES));
+#pragma unroll
+    for (int i = 0; i < F_TILE_C / 2; ++i) acc[i] += part[i];
+  };
+  // two register sets: the next chunk's sigmoid runs under this chunk's
+  // wgmmas
+  uint32_t hi0[4][4], lo0[4][4], hi1[4][4], lo1[4][4];
+  if (kc_total > 0) prep(0, hi0, lo0);
+  for (int kc = 0; kc < kc_total; kc += 2) {
+    mma(kc, hi0, lo0);
+    if (kc + 1 < kc_total) prep(kc + 1, hi1, lo1);
+    retire(kc);
+    if (kc + 1 >= kc_total) break;
+    mma(kc + 1, hi1, lo1);
+    if (kc + 2 < kc_total) prep(kc + 2, hi0, lo0);
+    retire(kc + 1);
+  }
+
+  // rows g and g + 8: voxels n and n + 1; columns c0 + 8 j + 2 t + {0, 1}
+  const long long n = n0 + wg * WG_ROWS + 32 * (warp >> 1) + 2 * P;
+#pragma unroll
+  for (int j = 0; j < F_TILE_C / 8; ++j) {
+    const int c = c0 + 8 * j + 2 * t;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long nn = n + h;
+      if (nn >= N) continue;
+      if (c < C) ob[nn * o_sn + c * o_sc] = acc[4 * j + 2 * h];
+      if (c + 1 < C) ob[nn * o_sn + (c + 1) * o_sc] = acc[4 * j + 2 * h + 1];
+    }
+  }
+}
+
+// blockIdx.x = voxel tile x channel tiles + channel tile, so the CTAs
+// that read one logits tile run side by side (the second reads it from L2)
+__global__ void __launch_bounds__(WG_THREADS, 1)
+crp_tf32_kernel(const __grid_constant__ CUtensorMap tm_p,
+                const __grid_constant__ CUtensorMap tm_g,
+                float* __restrict__ out, int N, int M, int C, int R,
+                long long o_sb, long long o_sr, long long o_sn,
+                long long o_sc) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t bars = smem_u32(smem + F_STAGES * F_STAGE_BYTES);
+  // full[s] at bars + 8 s, empty[s] at bars + 8 (F_STAGES + s)
+  const int tid = threadIdx.x;
+  const int n_ct = (C + F_TILE_C - 1) / F_TILE_C;
+  const int n0 = (blockIdx.x / n_ct) * TILE_N;
+  const int c0 = (blockIdx.x % n_ct) * F_TILE_C;
+  const int r = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kc_total = (M + F_KCH - 1) / F_KCH;
+
+  if (tid == 0) {
+    for (int s = 0; s < F_STAGES; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (F_STAGES + s), 8);  // one per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid < 128) {  // the producer warpgroup: one thread issues
+    setmaxnreg_dec<40>();
+    if (tid == 0) {
+      for (int kc = 0; kc < kc_total; ++kc) {
+        const int s = kc % F_STAGES;
+        if (kc >= F_STAGES)
+          mbar_wait(bars + 8 * (F_STAGES + s), ((kc / F_STAGES) - 1) & 1);
+        const uint32_t full = bars + 8 * s;
+        const uint32_t st = smem_u32(smem + s * F_STAGE_BYTES);
+        mbar_expect_tx(full, F_STAGE_BYTES);
+        for (int i = 0; i < 4; ++i)  // four 32-voxel boxes of logits
+          tma_load_4d(st + i * F_A_BOX, &tm_p, full, n0 + 32 * i,
+                      kc * F_KCH, r, b);
+        for (int h = 0; h < 2; ++h)  // mega hi, then lo
+          tma_load_4d(st + 2 * F_A_BYTES + h * F_B_BYTES, &tm_g, full,
+                      kc * F_KCH, c0, b, h);
+      }
+    }
+  } else {
+    setmaxnreg_inc<232>();
+    consume_tf32(smem, bars, kc_total, tid - 128, n0, c0, N, C,
+                 out + (long long)b * o_sb + (long long)r * o_sr, o_sn,
+                 o_sc);
+  }
+}
+
+// g is mega's (2, B, C, Mp) hi/lo split (tf32_split.cu): g_sb = C Mp,
+// g_sc = Mp, g_sm = 1
+int launch_tf32(const void* p, const void* g, float* out, long long B, int R,
+                long long N, long long M, long long C, const Strides& st,
+                cudaStream_t stream) {
+  const long long n_blocks =
+      (N + TILE_N - 1) / TILE_N * ((C + F_TILE_C - 1) / F_TILE_C);
+  if (N > 0x7fffffffLL || M > 0x7fffffffLL || C > 0x7fffffffLL ||
+      B > 65535 || n_blocks > 0x7fffffffLL)
+    return -3;
+  CUtensorMap tm_p, tm_g;
+  const uint64_t p_dims[4] = {(uint64_t)N, (uint64_t)M, (uint64_t)R,
+                              (uint64_t)B};
+  const uint64_t p_strides[3] = {(uint64_t)st.p_sm * 4,
+                                 (uint64_t)st.p_sr * 4,
+                                 (uint64_t)st.p_sb * 4};
+  const uint32_t p_box[4] = {32, F_KCH, 1, 1};
+  const uint64_t g_dims[4] = {(uint64_t)M, (uint64_t)C, (uint64_t)B, 2};
+  const uint64_t g_strides[3] = {(uint64_t)st.g_sc * 4,
+                                 (uint64_t)st.g_sb * 4,
+                                 (uint64_t)(B * st.g_sb) * 4};
+  const uint32_t g_box[4] = {F_KCH, F_TILE_C, 1, 1};
+  int rc = make_tensor_map(&tm_p, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, p,
+                           p_dims, p_strides, p_box,
+                           CU_TENSOR_MAP_SWIZZLE_128B);
+  if (rc == 0)
+    rc = make_tensor_map(&tm_g, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, g,
+                         g_dims, g_strides, g_box, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (rc != 0) return rc;
+  cudaError_t err = cudaFuncSetAttribute(
+      crp_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)n_blocks, (unsigned)R, (unsigned)B);
+  crp_tf32_kernel<<<grid, WG_THREADS, F_SMEM, stream>>>(
+      tm_p, tm_g, out, (int)N, (int)M, (int)C, R, st.o_sb, st.o_sr, st.o_sn,
+      st.o_sc);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32 operands, 1 = bfloat16 operands (output always fp32).
-// path: 0 = the SIMT kernel (any strides), 1 = the wgmma kernel (bf16;
-// p_sn == 1 and g_sm == 1, every other stride a multiple of 8 elements,
-// both operands 16-byte aligned: the caller checks).  Logits are
-// (B, R, N, M), mega (B, M, C) shared by the R relations, out
+// path: 0 = the SIMT kernel (any strides), 1 = the wgmma kernel (p_sn ==
+// 1 and g_sm == 1, every other stride a multiple of 16 bytes, both
+// operands 16-byte aligned: the caller checks; in float32, g is mega's
+// (2, B, C, Mp) TF32 split from occ_split_tf32, g_sb = C Mp, g_sc = Mp).
+// Logits are (B, R, N, M), mega (B, M, C) shared by the R relations, out
 // (B, R, N, C), all through strides in elements.  Returns the CUDA error
 // code of the launch; -1 for an unknown dtype or path, -3 for sizes the
 // kernel cannot take, -4/-5 if no tensor map could be made.
@@ -389,6 +627,8 @@ extern "C" int occ_crp_relation_matmul(
   const Strides st{p_sb, p_sr, p_sn, p_sm, g_sb, g_sm, g_sc,
                    o_sb, o_sr, o_sn, o_sc};
   if (path == 1) {
+    if (dtype == 0)
+      return launch_tf32(p, g, out, B, (int)R, N, M, C, st, stream);
     if (dtype != 1) return -1;
     return launch_wgmma(p, g, out, B, (int)R, N, M, C, st, stream);
   }

@@ -21,6 +21,11 @@ channels past Ci (a view, no copy, when x is channels-last already and Ci
 is a multiple of 8; on the card a transposing copy kernel otherwise),
 `pack_conv3x3_weight` makes w (Co, 3, 3, Cp) the same way;
 `conv3x3_packed_reference` is the plain conv of the packed operands.
+Both dtypes run on the tensor cores (wgmma): bf16 as it is, fp32 as three
+TF32 products, hi.hi + hi.lo + lo.hi (`ops/tf32.py`), the input split in
+registers and the weights once per call into a (2, Co, 3, 3, Cp) hi/lo
+buffer (`split_tf32_packed`, which packs them on the way), within ~2^-21
+of the fp32 product.  `conv3x3.paths` counts the launches of each.
 The kernel's output is NHWC memory, returned as (B, Co, H, W) in
 `torch.channels_last` format: the same values, so a decoder that stays
 channels-last (BN and LeakyReLU keep the format) feeds the next conv
@@ -44,6 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from occdepth_tpu_torch.ops import cuda_lib
+from occdepth_tpu_torch.ops.tf32 import split_tf32_packed
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -207,18 +213,25 @@ def _launch(x, w, b):
     if out.numel() == 0:
         return out
     xp = to_padded_channels_last(x)
-    wp = pack_conv3x3_weight(w)
+    Cp = xp.shape[-1]
+    if x.dtype == torch.float32:  # (2, Co, 3, 3, Cp): TF32 hi and lo
+        wp = split_tf32_packed(w.view(Co, Ci, 9).transpose(1, 2), Cp)
+    else:
+        wp = pack_conv3x3_weight(w)
     rc = cuda_lib.library().occ_conv3x3(
         xp.data_ptr(), wp.data_ptr(), None if b is None else b.data_ptr(),
-        out.data_ptr(), _DTYPE_CODE[x.dtype], B, xp.shape[-1], Co, H, W,
+        out.data_ptr(), _DTYPE_CODE[x.dtype], B, Cp, Co, H, W,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     cuda_lib.check(rc, "conv3x3")
     conv3x3.launches += 1
+    conv3x3.paths["wgmma_tf32" if x.dtype == torch.float32
+                  else "wgmma_bf16"] += 1
     return out
 
 
 conv3x3.launches = 0
+conv3x3.paths = {"wgmma_bf16": 0, "wgmma_tf32": 0}
 
 
 def resolve_conv_impl(impl: str, train: bool) -> str:

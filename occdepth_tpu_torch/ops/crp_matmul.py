@@ -4,14 +4,18 @@ Counterpart of `occdepth_tpu/ops/pallas_kernels.py::crp_relation_matmul`,
 batched over relations: one launch computes every (batch item, relation)
 product, with mega shared by the relations of a batch item.  For CPU
 tensors the wrapper runs the plain PyTorch version; for CUDA tensors it
-launches the kernel or raises.  bf16 operands with the logits in the
-model's layout (voxel-contiguous) take the wgmma kernel, whose sigmoid is
-split into two bf16 terms (`split_bf16`).  Each operand goes to it as is
-where TMA can read it (its contiguous dim unit-stride, the other strides
-multiples of 16 bytes, 16-byte aligned), else as `pad_for_tma`'s copy:
-the logits for NYU's N = 2,025 voxels (a 4,050-byte stride), mega for
-TartanAir's M = 1,350 mega-voxels (a 2,700-byte stride).  fp32
-operands and other logits layouts take the SIMT kernel.
+launches the kernel or raises.  Logits in the model's layout
+(voxel-contiguous) take a tensor-core kernel: in bf16 the wgmma kernel,
+whose sigmoid is split into two bf16 terms (`split_bf16`); in fp32 the
+3xTF32 wgmma kernel, whose sigmoid is split into TF32 hi and lo in
+registers and mega once per call (`ops/tf32.py`), three TF32 products per
+step.  Each operand goes to them as is where TMA can read it (its
+contiguous dim unit-stride, the other strides multiples of 16 bytes,
+16-byte aligned), else as `pad_for_tma`'s copy: the logits for NYU's N =
+2,025 voxels (a 4,050-byte stride in bf16, 8,100 in fp32), mega for
+TartanAir's M = 1,350 mega-voxels (2,700 and 5,400 bytes; in fp32 the
+split's buffer is that padded copy).  Other logits layouts take the SIMT
+kernel.  `crp_relation_matmul.paths` counts the launches of each kernel.
 
 The product is the registered operator `occdepth::crp_relation_matmul`
 (`torch.library.custom_op`), so a traced or exported program calls the
@@ -28,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from occdepth_tpu_torch.ops import cuda_lib
+from occdepth_tpu_torch.ops.tf32 import split_tf32_packed
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -124,36 +129,43 @@ def _sane_strides(t: torch.Tensor) -> list:
 
 
 def wgmma_path(p_logit: torch.Tensor, mega: torch.Tensor) -> bool:
-    """Whether (B, R, N, M) logits and (B, M, C) mega take the wgmma kernel:
-    bf16, logits voxel-contiguous.  Other strides of either operand that
-    TMA cannot read are made readable by a padded copy (`pad_for_tma`)."""
-    if p_logit.dtype != torch.bfloat16 or mega.dtype != torch.bfloat16:
+    """Whether (B, R, N, M) logits and (B, M, C) mega take a tensor-core
+    kernel (bf16 wgmma or fp32 3xTF32 wgmma): logits voxel-contiguous.
+    Other strides of either operand that TMA cannot read are made readable
+    by a padded copy (`pad_for_tma`)."""
+    if p_logit.dtype not in _DTYPE_CODE or mega.dtype != p_logit.dtype:
         return False
     return _sane_strides(p_logit)[2] == 1
 
 
+def _tma_multiple(t: torch.Tensor) -> int:
+    """Elements in 16 bytes of t's dtype: 8 in bf16, 4 in fp32."""
+    return 16 // t.element_size()
+
+
 def tma_reads(t: torch.Tensor, dim: int) -> bool:
-    """Whether the wgmma kernel's TMA reads bf16 operand t as it is: `dim`
-    contiguous (unit stride), the other strides multiples of 16 bytes, the
-    base 16-byte aligned.  `dim` is 2 for (B, R, N, M) logits, 1 for (B, M,
-    C) mega."""
-    st = _sane_strides(t)
-    return (st[dim] == 1 and all(s % 8 == 0 for i, s in enumerate(st)
+    """Whether the tensor-core kernels' TMA reads operand t as it is:
+    `dim` contiguous (unit stride), the other strides multiples of 16
+    bytes, the base 16-byte aligned.  `dim` is 2 for (B, R, N, M) logits,
+    1 for (B, M, C) mega."""
+    st, k = _sane_strides(t), _tma_multiple(t)
+    return (st[dim] == 1 and all(s % k == 0 for i, s in enumerate(st)
                                  if i != dim)
             and t.data_ptr() % 16 == 0)
 
 
 def pad_for_tma(t: torch.Tensor, dim: int) -> torch.Tensor:
-    """t as the wgmma kernel's TMA reads it: a view of t's shape on a new
-    zeroed buffer laid out with `dim` last and padded to a multiple of 8,
-    so `dim` is unit-stride and every other stride a 16-byte multiple in
-    bf16.  For NYU's logits (B, R, N = 2,025, M) that is a (B, R, M, 2,032)
-    buffer; for TartanAir's mega (B, M = 1,350, C) a (B, C, 1,352) one.
-    The kernel reads only the view: TMA zero-fills its last tile past the
+    """t as the tensor-core kernels' TMA reads it: a view of t's shape on
+    a new zeroed buffer laid out with `dim` last and padded to 16 bytes (8
+    bf16 or 4 fp32 elements), so `dim` is unit-stride and every other
+    stride a 16-byte multiple.  For NYU's logits (B, R, N = 2,025, M) that
+    is a (B, R, M, 2,032) buffer in bf16, (B, R, M, 2,028) in fp32; for
+    TartanAir's mega (B, M = 1,350, C) a (B, C, 1,352) one in either.  The
+    kernel reads only the view: TMA zero-fills its last tile past the
     view's extent, and the padding stays zero."""
     moved = t.movedim(dim, -1)
-    n = moved.shape[-1]
-    buf = t.new_zeros(*moved.shape[:-1], -(-n // 8) * 8)
+    n, k = moved.shape[-1], _tma_multiple(t)
+    buf = t.new_zeros(*moved.shape[:-1], -(-n // k) * k)
     buf[..., :n] = moved
     return buf[..., :n].movedim(-1, dim)
 
@@ -186,9 +198,15 @@ def _launch(p_logit, mega):
     path = int(wgmma_path(p4, g3))
     if path and not tma_reads(p4, 2):
         p4 = pad_for_tma(p4, 2)
-    if path and not tma_reads(g3, 1):
-        g3 = pad_for_tma(g3, 1)
-    ps, gs = _sane_strides(p4), _sane_strides(g3)
+    tf32 = path and p4.dtype == torch.float32
+    if tf32:  # mega's (2, B, C, Mp) hi/lo split, M padded to 16 bytes
+        g3 = split_tf32_packed(g3.transpose(1, 2), -(-M // 4) * 4)
+        gs = [C * g3.shape[-1], 1, g3.shape[-1]]
+    else:
+        if path and not tma_reads(g3, 1):
+            g3 = pad_for_tma(g3, 1)
+        gs = _sane_strides(g3)
+    ps = _sane_strides(p4)
     rc = cuda_lib.library().occ_crp_relation_matmul(
         p4.data_ptr(), g3.data_ptr(), out.data_ptr(),
         _DTYPE_CODE[p4.dtype], path, B, R, N, M, C,
@@ -198,7 +216,11 @@ def _launch(p_logit, mega):
     )
     cuda_lib.check(rc, "crp_relation_matmul")
     crp_relation_matmul.launches += 1
+    crp_relation_matmul.paths[
+        "wgmma_tf32" if tf32 else "wgmma_bf16" if path else "simt"] += 1
     return out[0, 0] if dim == 2 else out[:, 0] if dim == 3 else out
 
 
 crp_relation_matmul.launches = 0
+crp_relation_matmul.paths = {"wgmma_bf16": 0, "wgmma_tf32": 0,
+                             "simt": 0}

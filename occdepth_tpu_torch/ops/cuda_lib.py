@@ -62,6 +62,8 @@ _SIGNATURES = {
     "occ_matmul_probe": [_P, _P, _P] + [_I64] * 4 + [_P],
     "occ_hopper_selftest": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P],
     "occ_hopper_selftest_rs": [_P, _P, _P, _P],
+    "occ_hopper_selftest_tf32": [_P, _P, _P, ctypes.c_int, ctypes.c_int, _P],
+    "occ_split_tf32": [_P, _P] + [_I64] * 7 + [_P],
 }
 
 

@@ -12,8 +12,9 @@ under the JAX script's names:
   pal_x3  K3 as well: the JAX package's `conv3x3_pallas_x3` computes the
           same function, and the port has one kernel for both.
 
-float32 runs with TF32 off, so cuDNN computes what K3 computes.  Times are
-device times (`bench_timing.device_ms`).
+float32 runs with TF32 off, so cuDNN computes the fp32 product that K3's
+three TF32 products (3xTF32) reproduce.  Times are device times
+(`bench_timing.device_ms`).
 After each shape's candidates a `bound` line gives the least time the card
 could take for that conv (`bench_timing.bound_ms`).  `--block-rows` tiles
 the TPU kernel only and is accepted and ignored.
@@ -92,7 +93,7 @@ def main(argv=None):
             (x.numel() + w.numel() + B * Co * H * W) * x.element_size()
             + Co * 4, gf * 1e9,
             bench_timing.BF16_FLOPS if dtype == torch.bfloat16
-            else bench_timing.FP32_FLOPS)
+            else bench_timing.FP32_TC_FLOPS)  # fp32: K3's 3xTF32
         print(f"({B},{H},{W},{Ci:3d}->{Co:3d})  bound  {b_ms:7.3f} ms"
               f"  ({kind})", flush=True)
     print(f"launches conv3x3={conv3x3.launches}", flush=True)

@@ -22,6 +22,9 @@ import torch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
+# fp32-accurate products on the tensor cores: three TF32 products (dense
+# TF32, 495 TFLOP/s) per fp32 product, the 3xTF32 split of K2 and K3
+FP32_TC_FLOPS = 495e12 / 3
 
 
 def cuda_device(script: str) -> torch.device:

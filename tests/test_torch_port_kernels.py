@@ -120,7 +120,8 @@ def test_pad_mega_gives_tma_strides_and_zero_rows(B, M, C):
     conv output) as the wgmma kernel's TMA reads it: the same values,
     strides (C * Mp, 1, Mp) with Mp = M rounded up to 8, the rows past M
     zero.  At TartanAir's M = 1,350 the view itself has a 2,700-byte
-    stride, which TMA cannot read; the logits' layout still takes wgmma."""
+    stride, which TMA cannot read; the logits' layout still takes wgmma,
+    in bf16 and (3xTF32) in fp32."""
     g = torch.Generator().manual_seed(3)
     mega = torch.randn(B, C, M, generator=g).bfloat16().transpose(1, 2)
     assert tma_reads(mega, 1) == (M % 8 == 0)
@@ -133,7 +134,8 @@ def test_pad_mega_gives_tma_strides_and_zero_rows(B, M, C):
     assert not buf[:, :, M:].any()
     logits = torch.empty(B, 4, M, 10800, dtype=torch.bfloat16)
     assert wgmma_path(logits.transpose(2, 3), mega)
-    assert not wgmma_path(logits.float().transpose(2, 3), mega.float())
+    assert wgmma_path(logits.float().transpose(2, 3), mega.float())
+    assert not wgmma_path(logits.float().transpose(2, 3), mega)
 
 
 @pytest.mark.parametrize("B,N,M", [(1, 2025, 196), (2, 100, 37),
@@ -535,13 +537,16 @@ def test_upsample_bn_pallas_cpu_matches_shift():
                                    (2, 216, 11, 153, 96), (1, 99, 9, 77, 48),
                                    (2, 384, 6, 153, 192)])
 def test_conv3x3_kernel_matches_plain(cuda_device, dtype, shape):
-    """fp32 (TF32 off): sums in another order, 1e-4 * max|ref|; bf16: the
-    plain version in fp32 on the same bf16 inputs, one bf16 rounding of
-    the output apart, 2^-7 * max|ref|.  The redesign's edges: W = 77 and
+    """fp32 (3xTF32, against the plain version with TF32 off): sums in
+    another order and the split's 2^-21 per product, 1e-4 * max|ref|;
+    bf16: the plain version in fp32 on the same bf16 inputs, one bf16
+    rounding of the output apart, 2^-7 * max|ref|.  The redesign's edges: W = 77 and
     153 against the 16-column tile, Ci = 99 and 3 (padded channels), Ci =
-    216 and 1672 (a partial 64-channel chunk), Co = 5, 48, 64, 96, 192 and
-    768 (each column tile width, partly filled), NCHW and channels-last
-    inputs, with and without bias."""
+    216 and 1672 (a partial 64-channel chunk; fp32: 52 chunks of 32, each
+    promoted out of the tensor cores' accumulator), Co = 5, 48, 64, 96,
+    192 and 768 (each column tile width, bf16's 48/96/192 and fp32's
+    48/96/128, partly filled), NCHW and channels-last inputs, with and
+    without bias."""
     B, Ci, H, W, Co = shape
     g = torch.Generator(device=cuda_device).manual_seed(3)
     x = torch.randn(B, Ci, H, W, device=cuda_device, generator=g).to(dtype)
@@ -729,6 +734,75 @@ def test_hopper_helpers_ldmatrix_trans_and_rs_wgmma(cuda_device):
     assert (d - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
 
 
+def _tf32_selftest(a, b, rs):
+    """hopper_selftest.cu's TF32 product d = a @ b^T on the card."""
+    from occdepth_tpu_torch.ops import cuda_lib
+
+    d = torch.empty(64, b.shape[0], device=a.device)
+    rc = cuda_lib.library().occ_hopper_selftest_tf32(
+        a.data_ptr(), b.data_ptr(), d.data_ptr(), b.shape[0], rs,
+        torch.cuda.current_stream(a.device).cuda_stream)
+    cuda_lib.check(rc, "hopper_selftest_tf32")
+    torch.cuda.synchronize()
+    return d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [48, 96, 128])
+@pytest.mark.parametrize("rs", [0, 1], ids=["ss", "rs"])
+def test_hopper_helpers_tf32_wgmma(cuda_device, n, rs):
+    """csrc/hopper.cuh's TF32 products on their own: a (64, 32) A and an
+    (n, 32) B of TF32 values land by TMA, K-major and 128B-swizzled, and
+    four m64nNk8 k-slices multiply them, A by descriptor (SS) or as
+    register fragments loaded from the swizzled tile (RS: the fragment
+    layout that K2's and K3's fp32 paths load).  Products of TF32 values
+    are exact in fp32, sums of 32 in another order: 1e-5 * max|ref|.  On
+    a mismatch an identity B shows which A element each (row, k) position
+    received."""
+    from occdepth_tpu_torch.ops.tf32 import to_tf32_rna
+
+    g = torch.Generator(device=cuda_device).manual_seed(14)
+    a = to_tf32_rna(torch.randn(64, 32, device=cuda_device, generator=g))
+    b = to_tf32_rna(torch.randn(n, 32, device=cuda_device, generator=g))
+    d = _tf32_selftest(a, b, rs)
+    ref = a @ b.t()
+    err = (d - ref).abs().max().item()
+    if err > 1e-5 * ref.abs().max().item():
+        code = torch.arange(64 * 32, device=cuda_device,
+                            dtype=torch.float32).view(64, 32)  # TF32-exact
+        seen = _tf32_selftest(code, torch.eye(n, 32, device=cuda_device),
+                              rs)[:, :32].long()
+        bad = (seen != code.long()).nonzero()[:6].tolist()
+        pytest.fail(f"TF32 {'RS' if rs else 'SS'} n={n}: error {err}; "
+                    "(row, k) <- (row, k) read: " + ", ".join(
+                        f"{m, k} <- {divmod(int(seen[m, k]), 32)}"
+                        for m, k in bad))
+
+
+@pytest.mark.cuda
+def test_split_tf32_kernel_matches_plain(cuda_device):
+    """tf32_split.cu vs the plain split (`ops/tf32.py`) bit for bit: K2's
+    mega as its wrapper passes it, (B, C, M) with M = 1,350 padded to
+    1,352, and K3's OIHW weights read as (Co, 9, Ci) (Ci = 99 padded to
+    104), on values with ties at the TF32 rounding point, magnitudes from
+    1e-30 to 1e30, and signed zeros."""
+    from occdepth_tpu_torch.ops.tf32 import split_tf32_packed
+
+    g = torch.Generator(device=cuda_device).manual_seed(15)
+    mega = torch.randn(2, 256, 1350, device=cuda_device, generator=g)
+    mega *= 10.0 ** torch.randint(-30, 31, mega.shape, device=cuda_device,
+                                  generator=g)
+    bits = mega.view(torch.int32)
+    bits[:, :, ::7] = (bits[:, :, ::7] & -0x2000) | 0x1000  # ties
+    mega[0, 0, :2] = torch.tensor([0.0, -0.0], device=cuda_device)
+    w = torch.randn(48, 99, 3, 3, device=cuda_device, generator=g)
+    for x, d2p in ((mega, 1352), (w.view(48, 99, 9).transpose(1, 2), 104)):
+        out = split_tf32_packed(x, d2p)
+        ref = split_tf32_packed(x.cpu(), d2p)
+        assert out.shape == ref.shape == (2, *x.shape[:2], d2p)
+        assert torch.equal(out.cpu().view(torch.int32), ref.view(torch.int32))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 4, 4096, 512, 256),
@@ -750,11 +824,14 @@ def test_crp_matmul_relations_kernel_matches_plain(cuda_device, dtype,
                          generator=g).to(dtype)
     mega = torch.randn(B, C, M, device=cuda_device, generator=g).to(dtype)
     args = (logits.transpose(2, 3), mega.transpose(1, 2))
-    assert wgmma_path(*args) == (dtype == torch.bfloat16)
-    before = crp_relation_matmul.launches
+    assert wgmma_path(*args)
+    path = "wgmma_tf32" if dtype == torch.float32 else "wgmma_bf16"
+    before = (crp_relation_matmul.launches, crp_relation_matmul.paths[path])
     out = crp_relation_matmul(*args)
     torch.cuda.synchronize()
-    assert crp_relation_matmul.launches == before + 1
+    assert (crp_relation_matmul.launches,
+            crp_relation_matmul.paths[path]) == (before[0] + 1,
+                                                 before[1] + 1)
     assert out.shape == (B, R, N, C) and out.dtype == torch.float32
     assert out.transpose(2, 3).is_contiguous()
     ref = crp_relation_matmul_reference(*args)
@@ -790,17 +867,19 @@ def test_crp_matmul_tartanair_shape_takes_wgmma(cuda_device, B, M):
 def test_crp_matmul_nyu_shape_takes_wgmma(cuda_device, B, C, dtype):
     """K2 at NYU's CRP shape, (B, 4, 2,025, 196) @ (B, 196, C) in the
     model's layout, C = 800 (b4) and 1,600 (b7): neither operand's stride
-    is a 16-byte multiple, so bf16 takes the wgmma kernel on padded copies
-    of both, and C = 800 = 3 x 256 + 32 ends in a partial column tile (on
-    the SIMT kernel too, fp32); one launch, within 2e-5 * max|ref| of the
-    plain version."""
+    is a 16-byte multiple in bf16, so bf16 takes the wgmma kernel on
+    padded copies of both; fp32 takes the 3xTF32 kernel on the logits
+    padded to 2,028 (an 8,100-byte stride) and mega's TF32 split (784
+    bytes a row: no padding).  C = 800 = 3 x 256 + 32 ends in a partial
+    column tile; one launch, within 2e-5 * max|ref| of the plain
+    version."""
     g = torch.Generator(device=cuda_device).manual_seed(13)
     R, N, M = 4, 2025, 196
     logits = torch.randn(B, R, M, N, device=cuda_device, generator=g).to(dtype)
     mega = torch.randn(B, C, M, device=cuda_device, generator=g).to(dtype)
     args = (logits.transpose(2, 3), mega.transpose(1, 2))
-    assert wgmma_path(*args) == (dtype == torch.bfloat16)
-    assert not tma_reads(args[0], 2) and not tma_reads(args[1], 1)
+    assert wgmma_path(*args) and not tma_reads(args[0], 2)
+    assert tma_reads(args[1], 1) == (dtype == torch.float32)
     before = crp_relation_matmul.launches
     out = crp_relation_matmul(*args)
     torch.cuda.synchronize()
