@@ -54,20 +54,31 @@ Phases, one line each:
      bound share of each of the ten distinct shapes; K4 must not read
      under its bound (a kernel that skipped work would);
   8. autograd through K1, the fused lift and K2 (its four relations in
-     one call) on the card at the train path's shapes: their autograd
-     Functions' gradients vs autograd of the plain versions;
+     one call) on the card at the train path's shapes: their registered
+     gradients vs autograd of the plain versions, the lift's (its backward
+     kernel) also vs its closed-form plain version; then the lift's
+     backward kernel alone at the flagship's train shape (batch 1,
+     262,144 voxels, C=32, 370x1220): vs its plain version on the rig and
+     on edge-case points at P=1 and P=4, bf16 and fp32, NCHW and
+     channels-last, two calls equal bit for bit, device times of the
+     kernel and the plain version (CUDA-graph replays), the bytes bound
+     (grad_out and the coordinates read once, each distinct row that an
+     in-FOV point names read once, every row written once) and its share; the kernel must not read under its
+     bound and must beat the plain version;
   9. one tiny-config train step (fp32, TF32 off) on CUDA (kernels) vs the
      CPU (plain versions): loss terms, gradients, running statistics and
      updated parameters, within the fp32-noise-aware bounds of
-     tests/test_torch_port_train_step.py;
+     tests/test_torch_port_train_step.py; the lift's backward kernel once
+     per step;
  10. the training path: the Trainer at the flagship config in bf16 with
      dw_conv_grad=pallas fits 3 optimizer steps at batch 1 on a 2-sample
      labelled synthetic dataset, validating on a 1-sample one at each
      epoch end (counters set to 0 just before); every loss term finite,
      parameters changed, K4 launched once per stride-1 depthwise conv of
      view 0 per step with no operand copied to NCHW, the fused lift and
-     K2 once per step and per validation forward, the standalone K1
-     never; val/mIoU logged,
+     K2 once per step and per validation forward, the lift's backward
+     kernel once per step, the plain lift (forward or backward) on no
+     CUDA tensor, the standalone K1 never; val/mIoU logged,
      best_val_mIoU kept; metrics.jsonl written; a second Trainer resumes
      at step 3;
  11. K3 conv3x3 (implicit GEMM on 128-pixel tiles: one TMA halo load per
@@ -115,7 +126,8 @@ Phases, one line each:
      480x640 stereo PNGs, 120x48x120 labels, a rig that puts ~80% of the
      voxels in both views): the fused lift into 691,200 voxels (batch 1,
      the tree's projection and edge-case points, bf16 and fp32, NCHW and
-     channels-last) and its forward + backward time; K2 at the 30x12x30
+     channels-last) and its forward + backward time, and its backward
+     kernel as in phase 8 (two calls bit for bit); K2 at the 30x12x30
      bottleneck, (1, 4, 10,800, 1,350) @ (1, 1,350, 256), bf16 on the
      wgmma kernel and fp32 on the 3xTF32 one (mega padded to 1,352) beside
      the SIMT kernel and torch.sigmoid + torch.matmul; K4 at the b3
@@ -147,7 +159,8 @@ Phases, one line each:
      the real and the virtual view into 129,600 voxels at b4's C = 100
      (bf16 rows of 200 bytes: one element a lane) and b7's C = 200, bf16
      and fp32, NCHW and channels-last, on the tree's projection and on
-     edge-case points; K2 at the 15x9x15 bottleneck, (1, 4, 2,025, 196) @
+     edge-case points, and its backward kernel as in phase 8; K2 at the
+     15x9x15 bottleneck, (1, 4, 2,025, 196) @
      (1, 196, 800) and b7's 1,600 channels, bf16 on the wgmma kernel with
      the logits and mega padded (neither stride is a 16-byte multiple),
      fp32 on the 3xTF32 one with the logits padded, beside the SIMT kernel
@@ -175,9 +188,10 @@ Phases, one line each:
  23. the shipped KITTI configs no other phase trains, at full width in bf16
      with dw_conv_grad=pallas: K4 vs its plain version at the b7 encoder's
      stride-1 depthwise convs on 370x1220 (bench_dwconv's method, with its
-     times, bound and cuDNN's); the fused lift at the highcap configs'
-     C = 64 and K2 at (1, 4, 4,096, 512) @ (1, 512, 512), bf16 and fp32,
-     vs their plain versions; flospdepth (one view, no CRP or cascade),
+     times, bound and cuDNN's); the fused lift (and its backward kernel)
+     at the highcap configs' C = 64 and K2 at (1, 4, 4,096, 512) @ (1,
+     512, 512), bf16 and fp32, vs their plain versions; flospdepth (one
+     view, no CRP or cascade),
      the stereo-depth highcap (b7, feature 64) and the flosp highcap (b7,
      flosp), each 2 steps at batch 1 with validation: losses finite,
      parameters moved, K4 once per depthwise conv of each differentiated
@@ -266,6 +280,10 @@ N_FRAMES, BATCH = 5, 2
 K1_GRAD_TOL = 1e-5  # fp32, the same formula's autograd in another order
 K2_GRAD_RTOL = 2e-5  # x max|ref| in fp32 (512- and 4096-term sums)
 K2_GRAD_BF16_RTOL = 2 ** -7  # one bf16 rounding of the returned gradient
+# the lift's backward kernel vs its plain version, x max(1, max|ref|) per
+# map: fp32 sums of each row's terms in another order; bf16 one rounding of
+# those sums apart
+LIFT_GRAD_RTOL = {"float32": 1e-5, "bfloat16": 2 ** -7}
 LOSS_RTOL = 1e-4  # tiny train step, CUDA vs CPU loss terms
 GRAD_RTOL, NOISE_MULT, N_PERTURB, FLIP_MULT = 1e-3, 4.0, 2, 2.0
 TRAIN_STEPS = 3
@@ -443,22 +461,145 @@ def per_scale_lift(maps, pix, fov, scales):
     return x3d
 
 
-def lift_bytes(maps, pix, fov, scales) -> int:
-    """What the fused lift must move on these inputs: the coordinates and
-    masks once, each distinct (batch, view, scale) row that an in-FOV point
-    names once, the fp32 output once."""
+def named_row_bytes(maps, pix, fov, scales) -> int:
+    """The bytes of the distinct (batch, view, scale) map rows that an
+    in-FOV point names and that lie on the map: what the lift reads."""
     import torch
 
     B, V, C = maps[0].shape[:3]
-    n = pix.numel() * pix.element_size() + fov.numel()
+    n = 0
     for m, s in zip(maps, scales):
         h, w = m.shape[3:]
-        p = pix // s if s > 1 else pix
-        idx = (p[..., 1].long() * w + p[..., 0]
-               + torch.arange(B * V, device=p.device).view(B, V, 1, 1)
-               * (h * w + 1))
-        n += torch.unique(idx[fov]).numel() * C * m.element_size()
-    return n + B * pix.shape[2] * C * 4
+        p = (pix // s if s > 1 else pix).long()
+        on = fov & (p[..., 0] >= 0) & (p[..., 0] < w) & (p[..., 1] >= 0) \
+            & (p[..., 1] < h)
+        idx = (p[..., 1] * w + p[..., 0]
+               + torch.arange(B * V, device=p.device).view(B, V, 1, 1) * h * w)
+        n += torch.unique(idx[on]).numel() * C * m.element_size()
+    return n
+
+
+def lift_bytes(maps, pix, fov, scales) -> int:
+    """What the fused lift must move on these inputs: the coordinates and
+    masks once, each distinct row that an in-FOV point names once, the
+    fp32 output once."""
+    B, C = maps[0].shape[0], maps[0].shape[2]
+    n = pix.numel() * pix.element_size() + fov.numel()
+    return (n + named_row_bytes(maps, pix, fov, scales)
+            + B * pix.shape[2] * C * 4)
+
+
+def lift_backward_bytes(maps, pix, fov, scales, grad_out) -> int:
+    """What the lift's backward must move: grad_out, the coordinates and
+    the masks read once, each distinct row that an in-FOV point names read
+    once (the forward's reads), every row of each map's gradient written
+    once (zeros where no point lands)."""
+    n = grad_out.numel() * 4 + pix.numel() * pix.element_size() + fov.numel()
+    n += named_row_bytes(maps, pix, fov, scales)
+    return n + sum(m.numel() * m.element_size() for m in maps)
+
+
+class PlainLiftCalls:
+    """While active, counts the calls of the plain lift, forward or
+    backward, on CUDA tensors (the module attributes the registered
+    operators call); a train path on the card must make none."""
+
+    NAMES = ("flosp_stereo_lift_reference",
+             "flosp_stereo_lift_backward_reference")
+
+    def __enter__(self):
+        import occdepth_tpu_torch.ops.flosp_gather as fg
+
+        self.module, self.saved, self.count = fg, {}, 0
+        for name in self.NAMES:
+            fn = self.saved[name] = getattr(fg, name)
+
+            def counted(maps, *args, _fn=fn, **kwargs):
+                self.count += int(any(m.is_cuda for m in maps))
+                return _fn(maps, *args, **kwargs)
+
+            setattr(fg, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.module, name, fn)
+
+
+def lift_backward_at_shape(dev, rig, hw, C, cases, tag, edge_seed,
+                           map_seed) -> dict:
+    """The lift's backward kernel at batch 1 on the rig's N voxels from the
+    four scales of an hw image at C channels (the train step's shape), vs
+    its plain version in each (dtype, layout, points) case of `cases`
+    (points "rig": the projection, "edges": `lift_points`' edge cases at
+    P=1, "p4": at P=4 on N / 8 voxels), within LIFT_GRAD_RTOL; then on the
+    rig with bf16 NCHW maps (the train path's): two calls bit for bit, the
+    device times of the kernel and the plain version, the bytes bound and
+    its share.  The kernel must not read under its bound and must beat
+    the plain version."""
+    import torch
+
+    from occdepth_tpu_torch.ops.flosp_gather import (
+        flosp_stereo_lift_backward,
+        flosp_stereo_lift_backward_reference,
+    )
+    from occdepth_tpu_torch.testing import lift_points
+
+    N = rig[0].shape[2]
+    rng = np.random.RandomState(edge_seed)
+    points = {"rig": rig}
+    for name, n, P in (("edges", N, 1), ("p4", N // 8, 4)):
+        points[name] = [torch.from_numpy(a).to(dev)
+                        for a in lift_points(rng, 1, n, P, hw)]
+    g = torch.Generator(device=dev).manual_seed(map_seed)
+    worst, worst_abs = {}, 0.0
+    for i, (dtype, layout, name) in enumerate(cases):
+        pix, fov = points[name]
+        maps = lift_maps(dev, dtype, layout, 1, C, hw, seed=map_seed + i)
+        cot = torch.randn(1, pix.shape[2], C, device=dev, generator=g)
+        got = flosp_stereo_lift_backward(maps, pix, fov, LIFT_SCALES, cot)
+        ref = flosp_stereo_lift_backward_reference(maps, pix, fov,
+                                                   LIFT_SCALES, 1e-8, cot)
+        torch.cuda.synchronize()
+        diffs = [((a.float() - b.float()).abs().max().item(),
+                  b.float().abs().max().item()) for a, b in zip(got, ref)]
+        err = max(d / max(1.0, m) for d, m in diffs)
+        worst_abs = max([worst_abs] + [d for d, _ in diffs])
+        key = str(dtype).replace("torch.", "")
+        log(f"{tag}_bwd_check", points=name, P=pix.shape[3], layout=layout,
+            C=C, dtype=key, max_rel_err=err, rtol=LIFT_GRAD_RTOL[key])
+        check(err <= LIFT_GRAD_RTOL[key], f"{tag} backward {name} {key} "
+              f"{layout} C={C} error {err} x max(1, max|ref|)")
+        worst[key] = max(worst.get(key, 0.0), err)
+        del maps, got, ref
+    pix, fov = rig
+    maps = lift_maps(dev, torch.bfloat16, "nchw", 1, C, hw, seed=map_seed + 9)
+    cot = torch.randn(1, N, C, device=dev, generator=g)
+    first, second = (flosp_stereo_lift_backward(maps, pix, fov, LIFT_SCALES,
+                                                cot) for _ in range(2))
+    res = {"max_rel_err": worst, "max_abs_err": worst_abs,
+           "bitwise": all(torch.equal(bits(a), bits(b))
+                          for a, b in zip(first, second))}
+    del first, second
+    res["ms"] = device_ms(lambda: flosp_stereo_lift_backward(
+        maps, pix, fov, LIFT_SCALES, cot))
+    res["plain_ms"] = device_ms(lambda: flosp_stereo_lift_backward_reference(
+        maps, pix, fov, LIFT_SCALES, 1e-8, cot))
+    res["bound_ms"], res["bound_by"] = bound_ms(
+        lift_backward_bytes(maps, pix, fov, LIFT_SCALES, cot), 0,
+        FP32_FLOPS)
+    log(f"{tag}_bwd", shape=f"(1,{N},P1,{C}) bf16 NCHW, rig projection",
+        ms=f"{res['ms']:.5f}", plain_ms=f"{res['plain_ms']:.5f}",
+        bound_ms=f"{res['bound_ms']:.5f}", bound_by=res["bound_by"],
+        bound_share=f"{res['bound_ms'] / res['ms']:.3f}",
+        bitwise=res["bitwise"], max_rel_err=worst)
+    check(res["bitwise"], f"{tag}: two backward calls differ")
+    check(res["ms"] >= res["bound_ms"],
+          f"{tag} backward C={C} {res['ms']} ms under its bound")
+    check(res["ms"] < res["plain_ms"], f"{tag} backward {res['ms']} ms, not "
+          f"faster than the plain version {res['plain_ms']}")
+    torch.cuda.empty_cache()
+    return res
 
 
 def phase_lift(dev, calib, hw) -> dict:
@@ -725,10 +866,11 @@ def phase_k4(dev) -> dict:
                 bound_by="bytes" if bound_kinds == {"bytes"} else "operations")
 
 
-def phase_autograd(dev, calib, hw) -> None:
-    """8. Gradients through the K1, fused-lift and K2 autograd Functions on
-    the card vs autograd of the plain versions, at the train path's
-    shapes."""
+def phase_autograd(dev, calib, hw) -> dict:
+    """8. Gradients through K1, the fused lift and K2 on the card vs
+    autograd of the plain versions, at the train path's shapes; the
+    lift's backward kernel also vs its closed-form plain version, then
+    alone at the flagship's train shape (`lift_backward_at_shape`)."""
     import torch
 
     from occdepth_tpu_torch.ops.crp_matmul import (
@@ -761,25 +903,44 @@ def phase_autograd(dev, calib, hw) -> None:
     check(err <= K1_GRAD_TOL, f"K1 gradient error {err}")
 
     # the fused lift: gradients w.r.t. the four maps (fp32, batch 1), on the
-    # flagship rig's projection as the train step passes it
+    # flagship rig's projection as the train step passes it: its backward
+    # kernel vs autograd of the plain lift and vs the plain backward
     from occdepth_tpu_torch.ops.flosp_gather import (
         flosp_stereo_lift,
+        flosp_stereo_lift_backward,
+        flosp_stereo_lift_backward_reference,
         flosp_stereo_lift_reference,
     )
 
-    pix, fov = (torch.from_numpy(calib[k][:1]).to(dev)
-                for k in ("projected_pix", "fov_mask"))
+    rig = [torch.from_numpy(calib[k][:1]).to(dev)
+           for k in ("projected_pix", "fov_mask")]
+    pix, fov = rig
     maps = [m.requires_grad_() for m in lift_maps(
         dev, torch.float32, "nchw", 1, C, hw, seed=8)]
     cot = torch.randn(1, pix.shape[2], C, device=dev, generator=g)
     args = (maps, pix, fov, LIFT_SCALES)
+    launches = flosp_stereo_lift_backward.launches
     gk = grads(flosp_stereo_lift, maps, args, cot)
+    check(flosp_stereo_lift_backward.launches == launches + 1,
+          "the lift's gradient did not launch its backward kernel")
     gr = grads(flosp_stereo_lift_reference, maps, args, cot)
     err = max((a - b).abs().max().item() for a, b in zip(gk, gr))
+    gp = flosp_stereo_lift_backward_reference(
+        [m.detach() for m in maps], pix, fov, LIFT_SCALES, 1e-8, cot)
+    err_plain = max((a - b).abs().max().item() for a, b in zip(gk, gp))
     log("lift_grad", shape=f"(1,{pix.shape[2]},{C}) 4 maps fp32",
-        max_abs_err=err, tol=K1_GRAD_TOL)
-    check(err <= K1_GRAD_TOL, f"fused lift gradient error {err}")
-    del maps, gk, gr
+        max_abs_err=err, max_abs_err_plain_backward=err_plain,
+        tol=K1_GRAD_TOL)
+    check(max(err, err_plain) <= K1_GRAD_TOL,
+          f"fused lift gradient error {err}, vs the plain backward "
+          f"{err_plain}")
+    del maps, gk, gr, gp
+    backward = lift_backward_at_shape(
+        dev, rig, hw, C,
+        [(dt, lay, pts) for pts in ("rig", "edges", "p4")
+         for dt in (torch.bfloat16, torch.float32)
+         for lay in ("nchw", "channels_last")],
+        "kitti_lift", edge_seed=81, map_seed=82)
 
     # K2: (B=1, R, M, N) logits and (B=1, C, M) mega read transposed, the
     # four relations in one call, as the CRP passes them
@@ -801,6 +962,7 @@ def phase_autograd(dev, calib, hw) -> None:
             log("k2_grad", dtype=str(dtype).replace("torch.", ""), wrt=name,
                 relations=K2_RELATIONS, max_abs_err=err, tol=f"{tol:.3e}")
             check(err <= tol, f"K2 {dtype} {name} gradient error {err} > {tol}")
+    return backward
 
 
 def phase_tiny_train(dev) -> dict:
@@ -811,7 +973,10 @@ def phase_tiny_train(dev) -> dict:
     from occdepth_tpu_torch.models import OccDepthModel
     from occdepth_tpu_torch.ops.crp_matmul import crp_relation_matmul
     from occdepth_tpu_torch.ops.dw_conv import dw_filter_grad
-    from occdepth_tpu_torch.ops.flosp_gather import flosp_stereo_lift
+    from occdepth_tpu_torch.ops.flosp_gather import (
+        flosp_stereo_lift,
+        flosp_stereo_lift_backward,
+    )
     from occdepth_tpu_torch.ops.stereo_fuse import stereo_cosine_fuse
     from occdepth_tpu_torch.testing import (
         count_flips,
@@ -845,9 +1010,10 @@ def phase_tiny_train(dev) -> dict:
     gpu_models = [copy.deepcopy(cpu_model)] + [
         perturbed_copy(cpu_model, s) for s in range(N_PERTURB)]
     counted = (flosp_stereo_lift, crp_relation_matmul, dw_filter_grad,
-               stereo_cosine_fuse)
+               stereo_cosine_fuse, flosp_stereo_lift_backward)
     counts0 = [fn.launches for fn in counted]
-    cuda_runs = [step(m, dev) for m in gpu_models]
+    with PlainLiftCalls() as plain:
+        cuda_runs = [step(m, dev) for m in gpu_models]
     launches = [fn.launches - c0 for fn, c0 in zip(counted, counts0)]
     ref = step(cpu_model, "cpu")
     ours, noise = cuda_runs[0], cuda_runs[1:]
@@ -864,15 +1030,18 @@ def phase_tiny_train(dev) -> dict:
         stats_worst=f"{worst['stats'][0]:.3f}:{worst['stats'][1]}",
         update_flips=flips, noise_flips=flips_noise,
         lift_launches=launches[0], k2_launches=launches[1],
-        k4_launches=launches[2], k1_launches=launches[3])
+        k4_launches=launches[2], k1_launches=launches[3],
+        lift_backward_launches=launches[4], plain_lift_on_cuda=plain.count)
     check(loss_err <= LOSS_RTOL, f"tiny train loss error {loss_err}")
     for name, w in worst.items():
         check(w[0] <= 1.0, f"tiny train {name}: {w}")
     check(flips <= FLIP_MULT * max(flips_noise, 1),
           f"tiny train update flips {flips} vs noise {flips_noise}")
-    check(launches[0] == launches[1] == len(cuda_runs) and launches[2] > 0
-          and launches[3] == 0, f"tiny train launches {launches} (lift, "
-          "K2 once per step, K4, standalone K1 never)")
+    check(launches[0] == launches[1] == launches[4] == len(cuda_runs)
+          and launches[2] > 0 and launches[3] == 0 and plain.count == 0,
+          f"tiny train launches {launches} (lift, K2 and the lift's "
+          "backward once per step, K4, standalone K1 never), plain lift on "
+          f"CUDA {plain.count}")
     return {"loss_rel_err": loss_err}
 
 
@@ -881,13 +1050,17 @@ def kernel_counters() -> dict:
     from occdepth_tpu_torch.ops.conv2d_shift import conv3x3
     from occdepth_tpu_torch.ops.crp_matmul import crp_relation_matmul
     from occdepth_tpu_torch.ops.dw_conv import dw_filter_grad
-    from occdepth_tpu_torch.ops.flosp_gather import flosp_stereo_lift
+    from occdepth_tpu_torch.ops.flosp_gather import (
+        flosp_stereo_lift,
+        flosp_stereo_lift_backward,
+    )
     from occdepth_tpu_torch.ops.matmul_probe import matmul_probe
     from occdepth_tpu_torch.ops.row_gather import row_gather
     from occdepth_tpu_torch.ops.stereo_fuse import stereo_cosine_fuse
 
     return {"stereo_cosine_fuse": stereo_cosine_fuse,
             "flosp_stereo_lift": flosp_stereo_lift,
+            "flosp_stereo_lift_backward": flosp_stereo_lift_backward,
             "crp_relation_matmul": crp_relation_matmul,
             "conv3x3": conv3x3, "dw_filter_grad": dw_filter_grad,
             "row_gather": row_gather, "matmul_probe": matmul_probe}
@@ -938,10 +1111,12 @@ def fit_and_check(cfg, train_ds, val_ds, logdir, expected, tag,
     `k4_views` views per step (view 0 alone unless the views' backbone
     passes are all differentiated) with no operand copied, the fused lift
     and K2 `lift_k2` times per step and per validation forward (0 for one
-    view without CRP), K1 and K3 never, val/mIoU logged, the
-    best-by-metric checkpoints kept.  Returns the trainer (`trainer`, or a
-    new one on `logdir`), its launch counts, ms/step (CUDA events, mean of
-    the steps after the first) and peak memory."""
+    view without CRP), the lift's backward kernel `lift_k2` times per step
+    and the plain lift (forward or backward) on no CUDA tensor, K1 and K3
+    never, val/mIoU logged, the best-by-metric checkpoints kept.  Returns
+    the trainer (`trainer`, or a new one on `logdir`), its launch counts,
+    ms/step (CUDA events, mean of the steps after the first) and peak
+    memory."""
     import torch
 
     from occdepth_tpu_torch.ops.dw_conv import dw_filter_grad
@@ -958,7 +1133,8 @@ def fit_and_check(cfg, train_ds, val_ds, logdir, expected, tag,
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    trainer.fit(train_ds, val_ds, max_steps=steps)
+    with PlainLiftCalls() as plain:
+        trainer.fit(train_ds, val_ds, max_steps=steps)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches, copies = read_counts(), dw_filter_grad.copies
@@ -982,7 +1158,7 @@ def fit_and_check(cfg, train_ds, val_ds, logdir, expected, tag,
         ms_per_step_2_3=f"{ms_step:.2f}", peak_mem_gib=f"{peak / 2**30:.3f}",
         gpu=repr(smi), dw_convs=n_dw,
         params_changed=f"{changed}/{len(trained)}/{len(before)}",
-        val_steps=val_steps, k4_copies=copies,
+        val_steps=val_steps, k4_copies=copies, plain_lift_on_cuda=plain.count,
         best_val_mIoU=trainer.ckpt.best.get("val/mIoU"),
         **{f"{k}_launches": v for k, v in launches.items()},
         **{k.replace("train/", ""): f"{last[k]:.5f}" for k in terms})
@@ -1009,6 +1185,11 @@ def fit_and_check(cfg, train_ds, val_ds, logdir, expected, tag,
         check(launches[name] == forwards,
               f"{tag}: {name} launches {launches[name]} for {forwards} "
               "forwards")
+    check(launches["flosp_stereo_lift_backward"] == steps * lift_k2,
+          f"{tag}: the lift's backward launches "
+          f"{launches['flosp_stereo_lift_backward']} for {steps} steps")
+    check(plain.count == 0,
+          f"{tag}: the plain lift ran {plain.count} times on the card")
     check(launches["stereo_cosine_fuse"] == 0,
           f"{tag}: K1 launches {launches['stereo_cosine_fuse']}")
     check(launches["conv3x3"] == 0, f"{tag}: training ran K3")
@@ -1626,7 +1807,8 @@ def lift_at_shape(dev, rig, hw, C, cases, tag, edge_seed, map_seed) -> dict:
     projection, "edges": `lift_points`' edge cases); then its device
     times on the rig with bf16 NCHW maps (the kernel, the plain version,
     the per-scale path), the bytes bound, and the train step's forward +
-    backward (CUDA events)."""
+    backward (CUDA events); then its backward kernel in the same cases
+    (`lift_backward_at_shape`)."""
     import torch
 
     from occdepth_tpu_torch.ops.flosp_gather import (
@@ -1665,8 +1847,7 @@ def lift_at_shape(dev, rig, hw, C, cases, tag, edge_seed, map_seed) -> dict:
         lambda: per_scale_lift(maps, pix, fov, LIFT_SCALES))
     lift["bound_ms"], lift["bound_by"] = bound_ms(
         lift_bytes(maps, pix, fov, LIFT_SCALES), 0, FP32_FLOPS)
-    # the train step's lift: forward, then the backward that recomputes
-    # the plain version and differentiates it
+    # the train step's lift: forward, then its backward kernel
     leaves = [m.detach().requires_grad_() for m in maps]
     cot = torch.randn(1, N, C, device=dev)
     lift["fwd_ms_events"] = cuda_ms(
@@ -1681,6 +1862,9 @@ def lift_at_shape(dev, rig, hw, C, cases, tag, edge_seed, map_seed) -> dict:
     check(lift["ms"] >= lift["bound_ms"],
           f"{tag} C={C} {lift['ms']} ms under its bound")
     check(lift["fov_share"] > 0.5, f"{tag}: the tree's rig sees too little")
+    del maps, leaves
+    lift["backward"] = lift_backward_at_shape(
+        dev, rig, hw, C, cases, tag, edge_seed, map_seed + 10)
     return lift
 
 
@@ -2147,14 +2331,15 @@ def phase_nyu_train(dev, smi: str, base: str, n_dw: int,
     reset_counts()
     dw_filter_grad.copies = 0
     step_ms, logs = [], {}
-    for _ in range(2):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
-        logs, _, _ = train_step(cfg7, trainer.model, trainer.optimizer,
-                                batches[:1], 0.0, cfg7.lr)
-        ev[1].record()
-        torch.cuda.synchronize()
-        step_ms.append(ev[0].elapsed_time(ev[1]))
+    with PlainLiftCalls() as plain:
+        for _ in range(2):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            logs, _, _ = train_step(cfg7, trainer.model, trainer.optimizer,
+                                    batches[:1], 0.0, cfg7.lr)
+            ev[1].record()
+            torch.cuda.synchronize()
+            step_ms.append(ev[0].elapsed_time(ev[1]))
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     ev[0].record()
     vlogs, _, _ = eval_step(cfg7, trainer.model, batches[1])
@@ -2178,8 +2363,12 @@ def phase_nyu_train(dev, smi: str, base: str, n_dw: int,
           f"NYU b7: K4 launches {n['dw_filter_grad']} for {n_dw7} convs")
     check(copies == 0, f"NYU b7: K4 copied {copies} operands to NCHW")
     check(n["flosp_stereo_lift"] == n["crp_relation_matmul"] == 3
+          and n["flosp_stereo_lift_backward"] == 2
           and n["stereo_cosine_fuse"] == n["conv3x3"] == 0,
-          f"NYU b7: launches {n} (lift and K2 once per forward)")
+          f"NYU b7: launches {n} (lift and K2 once per forward, the lift's "
+          "backward once per step)")
+    check(plain.count == 0,
+          f"NYU b7: the plain lift ran {plain.count} times on the card")
     fit["b7"] = b7
     del trainer, batches
     torch.cuda.empty_cache()
@@ -3077,11 +3266,12 @@ def raw_kitti(base: str, smi: str) -> dict:
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    trainer = train_cli.main([
-        "--config", default_config_path(FLAGSHIP), "--max-steps", "2",
-        *paths, f"logdir={base}/logdir", "compute_dtype=bfloat16",
-        "dw_conv_grad=pallas", "batch_size_per_gpu=1",
-        "log_every_n_steps=1"])
+    with PlainLiftCalls() as plain:
+        trainer = train_cli.main([
+            "--config", default_config_path(FLAGSHIP), "--max-steps", "2",
+            *paths, f"logdir={base}/logdir", "compute_dtype=bfloat16",
+            "dw_conv_grad=pallas", "batch_size_per_gpu=1",
+            "log_every_n_steps=1"])
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     launches, copies = read_counts(), dw_filter_grad.copies
@@ -3110,6 +3300,10 @@ def raw_kitti(base: str, smi: str) -> dict:
         check(launches[name] == 2 + n_val,
               f"raw KITTI train: {name} {launches[name]} for 2 steps and "
               f"{n_val} val forwards")
+    check(launches["flosp_stereo_lift_backward"] == 2 and plain.count == 0,
+          f"raw KITTI train: the lift's backward launched "
+          f"{launches['flosp_stereo_lift_backward']} times for 2 steps, the "
+          f"plain lift {plain.count} times on the card")
     check(launches["stereo_cosine_fuse"] == launches["conv3x3"] == 0,
           f"raw KITTI train: K1/K3 launched {launches}")
     return {"launches": launches, "preprocess_s_per_frame": pre_s / frames,
@@ -3371,7 +3565,7 @@ def main() -> None:
 
     # ---- 7-10. K4, autograd through K1/K2, tiny and flagship training ----
     k4 = phase_k4(dev)
-    phase_autograd(dev, calib, cfg.img_shape)
+    lift_bwd = phase_autograd(dev, calib, cfg.img_shape)
     phase_tiny_train(dev)
     train = phase_train(dev, smi)
     # ---- 11-12. K3 and the eval path ----
@@ -3496,6 +3690,29 @@ def main() -> None:
          "timed": "serving shape: batch 2, 262,144 voxels, C=32, bf16 NCHW "
                   "maps (their channels-last copies timed), the rig's "
                   "projection, P=1; yardstick: per-scale index_select + K1"},
+        {"name": "flosp_stereo_lift_backward", "route": "cuda",
+         "source": "occdepth_tpu_torch/csrc/stereo_fuse.cu",
+         "replaces": "no TPU kernel: XLA's VJP of occdepth_tpu/models/sfa.py"
+                     ":23 (the scatter-add of jnp.take in occdepth_tpu/ops/"
+                     "flosp_gather.py:48 and the fusion's jnp formula)",
+         **by_path("flosp_stereo_lift_backward"),
+         **{k: lift_bwd[k] for k in ("max_abs_err", "max_rel_err", "ms",
+                                     "plain_ms", "bound_ms", "bound_by",
+                                     "bitwise")},
+         "library_ms": None,
+         "tartanair": at_ta(ta["lift"]["backward"], (
+             "max_rel_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "bitwise")),
+         "nyu": {name: at_ta(r["backward"], (
+             "max_rel_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "bitwise")) for name, r in (("b4", nyu["lift"]),
+                                         ("b7", nyu["lift_b7"]))},
+         "kitti_highcap": at_ta(configs["lift_highcap"]["backward"], (
+             "max_rel_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "bitwise")),
+         "timed": "train shape: batch 1, 262,144 voxels, C=32, bf16 NCHW "
+                  "maps of a 370x1220 image, the rig's projection, P=1; "
+                  "max_rel_err: x max(1, max|ref|) per map"},
         {"name": "crp_relation_matmul", "route": "cuda",
          "source": "occdepth_tpu_torch/csrc/crp_matmul.cu",
          "replaces": "occdepth_tpu/ops/pallas_kernels.py:61",

@@ -49,6 +49,10 @@ _SIGNATURES = {
         [_P, _P, ctypes.c_int, _P, _P, _P, ctypes.c_int, _I64, _I64,
          ctypes.c_int, ctypes.c_int, ctypes.c_float, _P]
     ),
+    "occ_flosp_stereo_lift_backward": (
+        [_P, _P, _P, ctypes.c_int, _P, _P, _P, _P, ctypes.c_int, _I64, _I64,
+         ctypes.c_int, ctypes.c_int, ctypes.c_float, _P]
+    ),
     "occ_crp_relation_matmul": (
         [_P, _P, _P, ctypes.c_int, ctypes.c_int] + [_I64] * 16 + [_P]
     ),
@@ -152,6 +156,10 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    # a size, not an error code
+    fn = lib.occ_flosp_stereo_lift_backward_workspace
+    fn.argtypes = [_I64, _I64, ctypes.c_int]
+    fn.restype = _I64
     return lib
 
 

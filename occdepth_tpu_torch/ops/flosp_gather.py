@@ -14,9 +14,11 @@ grid once.  Its plain version `flosp_stereo_lift_reference` is the
 per-scale loop above.  The lift is the registered operator
 `occdepth::flosp_stereo_lift` (`torch.library.custom_op`), so a traced or
 exported program calls the kernel by name: its CUDA implementation is the
-kernel launch, its CPU implementation the plain version, and its
-registered gradient autograd of the plain version, recomputed from the
-saved inputs.
+kernel launch, its CPU implementation the plain version.  Its registered
+gradient is the operator `occdepth::flosp_stereo_lift_backward`, the
+closed form of the maps' gradient: on CUDA the deterministic kernel
+`occ_flosp_stereo_lift_backward` (same source), on the CPU its plain
+version `flosp_stereo_lift_backward_reference`.
 """
 from __future__ import annotations
 
@@ -116,6 +118,107 @@ def flosp_stereo_lift_reference(
     return x3d
 
 
+def flosp_stereo_lift_backward_reference(
+    maps: Sequence[torch.Tensor],  # per scale (B, 2, C, h_s, w_s)
+    projected_pix: torch.Tensor,  # (B, 2, N, P, 2) int, project-scale coords
+    fov_mask: torch.Tensor,  # (B, 2, N, P) bool
+    project_res: Sequence[int],
+    eps: float,
+    grad_out: torch.Tensor,  # (B, N, C) float32
+) -> list:
+    """Plain version of the lift's backward: each map's gradient, with the
+    map's shape and dtype and channels-last strides (`_grad_like`).
+
+    Per batch item b, voxel n and scale s, with g = grad_out[b, n], f_v view
+    v's mean over its in-FOV points (0 when it has none), m_v = [count_v >
+    0], k_v = max(|f_v|, eps), c = (f0.f1) / (k0 k1) m0 m1 and w_v = c +
+    [m_v > m_other] (the forward is (w0 f0 + w1 f1) / 2):
+
+        df_v = w_v g / 2 + a m0 m1 (f_o / (k_v k_o)
+                                   - [|f_v| > eps] (f0.f1) f_v / (k_v^3 k_o)),
+        a = (g.f0 + g.f1) / 2,
+
+    and each in-FOV point of view v adds df_v / count_v to the map row it
+    names at scale s.  An in-FOV point whose flat index falls off the map
+    adds nothing (its view's mean is NaN, as the kernel's forward reads it).
+    Sums run in float32 in ascending (n, p) order per row (`index_add_` on
+    the CPU) and are rounded once to the map's dtype.
+    """
+    g = grad_out.float()
+    B, N, C = g.shape
+    grads = []
+    for x2d, scale in zip(maps, project_res):
+        _, V, _, h, w = x2d.shape
+        pix = (projected_pix // scale if scale > 1 else projected_pix).long()
+        idx = pix[..., 1] * w + pix[..., 0]  # (B, 2, N, P)
+        on_map = (idx >= 0) & (idx < h * w)
+        flat = (torch.where(on_map, idx, 0)
+                + torch.arange(B * V, device=idx.device).view(B, V, 1, 1)
+                * (h * w))
+        table = x2d.permute(0, 1, 3, 4, 2).reshape(B * V * h * w, C).float()
+        rows = table.index_select(0, flat.reshape(-1)).view(*flat.shape, C)
+        rows = torch.where((fov_mask & on_map)[..., None], rows,
+                           torch.where(fov_mask, float("nan"), 0.0)[..., None])
+        count = fov_mask.sum(-1).float()  # (B, 2, N)
+        f = torch.where(count[..., None] > 0,
+                        rows.sum(3) / count.clamp(min=1)[..., None], 0.0)
+        m = (count > 0).float()
+        s01 = (f[:, 0] * f[:, 1]).sum(-1)
+        n = torch.linalg.vector_norm(f, dim=-1)  # (B, 2, N)
+        k = n.clamp(min=eps)
+        cos = s01 / (k[:, 0] * k[:, 1]) * (m[:, 0] * m[:, 1])
+        a = (0.5 * ((g * f[:, 0]).sum(-1) + (g * f[:, 1]).sum(-1))
+             * (m[:, 0] * m[:, 1]))
+        df = []
+        for v in (0, 1):
+            o = 1 - v
+            alpha = 0.5 * (cos + (m[:, v] - m[:, o] > 0).float())
+            gamma = a / (k[:, v] * k[:, o])
+            beta = torch.where(n[:, v] > eps,
+                               -a * s01 / (k[:, v] ** 3 * k[:, o]), 0.0)
+            df.append(alpha[..., None] * g + beta[..., None] * f[:, v]
+                      + gamma[..., None] * f[:, o])
+        per_point = torch.stack(df, 1) / count.clamp(min=1)[..., None]
+        # every point adds to its row, the others to a spare row past the
+        # maps' rows (no masked indexing: nothing waits for the device)
+        take = fov_mask & on_map
+        contrib = torch.where(take[..., None], per_point[:, :, :, None],
+                              0.0)
+        acc = torch.zeros(B * V * h * w + 1, C, dtype=torch.float32,
+                          device=g.device)
+        acc.index_add_(0, torch.where(take, flat, B * V * h * w).reshape(-1),
+                       contrib.reshape(-1, C))
+        grads.append(acc[:-1].view(B, V, h, w, C).to(x2d.dtype)
+                     .permute(0, 1, 4, 2, 3))
+    return grads
+
+
+def _grad_like(x2d: torch.Tensor) -> torch.Tensor:
+    """An uninitialised gradient for map x2d: its shape and dtype, a dense
+    (B, V, h, w, C) buffer viewed as (B, V, C, h, w), whose rows the
+    backward kernel writes whole."""
+    B, V, C, h, w = x2d.shape
+    return x2d.new_empty((B, V, h, w, C)).permute(0, 1, 4, 2, 3)
+
+
+def flosp_stereo_lift_backward(
+    maps: Sequence[torch.Tensor],
+    projected_pix: torch.Tensor,
+    fov_mask: torch.Tensor,
+    project_res: Sequence[int],
+    grad_out: torch.Tensor,
+    eps: float = 1e-8,
+) -> list:
+    """Each map's gradient given the lift's output gradient `grad_out`
+    (B, N, C) float32: the lift's registered gradient, callable alone.
+    Returns one tensor per map with its shape and dtype, channels-last
+    whatever the map's layout.  On CUDA one call of the deterministic
+    kernel (two calls give equal bits)."""
+    return torch.ops.occdepth.flosp_stereo_lift_backward(
+        list(maps), projected_pix, fov_mask, [int(s) for s in project_res],
+        float(eps), grad_out)
+
+
 def flosp_stereo_lift(
     maps: Sequence[torch.Tensor],
     projected_pix: torch.Tensor,
@@ -174,15 +277,39 @@ def _lift_setup(ctx, inputs, output):
 
 
 def _lift_backward(ctx, grad_out):
-    """Every map's gradient: autograd of the plain version, recomputed."""
+    """Every map's gradient, through the backward operator."""
     pix, fov, *maps = ctx.saved_tensors
-    _, vjp = torch.func.vjp(
-        lambda *m: flosp_stereo_lift_reference(m, pix, fov, ctx.project_res,
-                                               ctx.eps), *maps)
-    return [g.contiguous() for g in vjp(grad_out)], None, None, None, None
+    grads = torch.ops.occdepth.flosp_stereo_lift_backward(
+        maps, pix, fov, ctx.project_res, ctx.eps, grad_out)
+    return list(grads), None, None, None, None
 
 
 _lift_op.register_autograd(_lift_backward, setup_context=_lift_setup)
+
+_LIFT_BWD_SCHEMA = ("(Tensor[] maps, Tensor projected_pix, Tensor fov_mask, "
+                    "int[] project_res, float eps, Tensor grad_out) "
+                    "-> Tensor[]")
+
+
+@torch.library.custom_op("occdepth::flosp_stereo_lift_backward",
+                         mutates_args=(), device_types="cuda",
+                         schema=_LIFT_BWD_SCHEMA)
+def _lift_bwd_op(maps, projected_pix, fov_mask, project_res, eps, grad_out):
+    """The backward operator's CUDA implementation: one kernel call."""
+    return _launch_lift_backward(maps, projected_pix, fov_mask, project_res,
+                                 eps, grad_out)
+
+
+@_lift_bwd_op.register_kernel("cpu")
+def _lift_bwd_cpu(maps, projected_pix, fov_mask, project_res, eps, grad_out):
+    return flosp_stereo_lift_backward_reference(
+        maps, projected_pix, fov_mask, project_res, eps, grad_out)
+
+
+@_lift_bwd_op.register_fake
+def _lift_bwd_fake(maps, projected_pix, fov_mask, project_res, eps,
+                   grad_out):
+    return [_grad_like(m) for m in maps]
 
 
 def channels_last_map(x2d: torch.Tensor) -> torch.Tensor:
@@ -196,49 +323,97 @@ def channels_last_map(x2d: torch.Tensor) -> torch.Tensor:
     return packed.view(B, V, h, w, -1)[..., :C].permute(0, 1, 4, 2, 3)
 
 
-def _launch_lift(maps, projected_pix, fov_mask, project_res, eps):
-    """The kernel launch behind `flosp_stereo_lift` (CUDA tensors)."""
+def _checked_inputs(name, maps, projected_pix, fov_mask, project_res):
+    """The kernels' inputs checked on CUDA: (channels-last maps, contiguous
+    pix and fov, per-scale geometry for the C entry points)."""
     dev = maps[0].device
     B, V, C = maps[0].shape[:3]
     N, P = projected_pix.shape[2], projected_pix.shape[3]
     if V != 2 or not 1 <= len(maps) <= MAX_SCALES:
-        raise ValueError(f"flosp_stereo_lift: {V} views, {len(maps)} scales "
+        raise ValueError(f"{name}: {V} views, {len(maps)} scales "
                          f"(2 views, 1-{MAX_SCALES} scales supported)")
-    for name, t in [(f"map {i}", m) for i, m in enumerate(maps)] + [
+    for what, t in [(f"map {i}", m) for i, m in enumerate(maps)] + [
             ("projected_pix", projected_pix), ("fov_mask", fov_mask)]:
         if t.device != dev or dev.type != "cuda":
-            raise ValueError(f"flosp_stereo_lift: {name} on {t.device}")
+            raise ValueError(f"{name}: {what} on {t.device}")
     for i, m in enumerate(maps):
         if m.dtype not in _DTYPE_CODE or m.dtype != maps[0].dtype:
-            raise TypeError(f"flosp_stereo_lift: map {i} is {m.dtype}")
+            raise TypeError(f"{name}: map {i} is {m.dtype}")
         if m.dim() != 5 or m.shape[:3] != (B, V, C):
-            raise ValueError(f"flosp_stereo_lift: map {i} shape "
-                             f"{tuple(m.shape)}")
+            raise ValueError(f"{name}: map {i} shape {tuple(m.shape)}")
     if projected_pix.dtype != torch.int32 or fov_mask.dtype != torch.bool:
-        raise TypeError(f"flosp_stereo_lift: projected_pix "
-                        f"{projected_pix.dtype}, fov_mask {fov_mask.dtype} "
-                        "(int32 and bool expected)")
+        raise TypeError(f"{name}: projected_pix {projected_pix.dtype}, "
+                        f"fov_mask {fov_mask.dtype} (int32 and bool "
+                        "expected)")
     if (projected_pix.shape != (B, V, N, P, 2)
             or fov_mask.shape != (B, V, N, P)):
-        raise ValueError(f"flosp_stereo_lift: projected_pix "
+        raise ValueError(f"{name}: projected_pix "
                          f"{tuple(projected_pix.shape)}, fov_mask "
                          f"{tuple(fov_mask.shape)}")
     maps = [channels_last_map(m) for m in maps]
-    pix, fov = projected_pix.contiguous(), fov_mask.contiguous()
     geom = []
     for m, scale in zip(maps, project_res):
         geom += [m.stride(0), m.stride(1), m.stride(3), m.stride(4),
                  m.shape[3], m.shape[4], int(scale)]
+    return (maps, projected_pix.contiguous(), fov_mask.contiguous(),
+            (ctypes.c_longlong * len(geom))(*geom))
+
+
+def _pointers(tensors):
+    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+
+
+def _launch_lift(maps, projected_pix, fov_mask, project_res, eps):
+    """The kernel launch behind `flosp_stereo_lift` (CUDA tensors)."""
+    packed, pix, fov, geom = _checked_inputs(
+        "flosp_stereo_lift", maps, projected_pix, fov_mask, project_res)
+    dev = maps[0].device
+    B, _, C = maps[0].shape[:3]
+    N, P = pix.shape[2], pix.shape[3]
     out = torch.empty((B, N, C), dtype=torch.float32, device=dev)
     rc = cuda_lib.library().occ_flosp_stereo_lift(
-        (ctypes.c_void_p * len(maps))(*(m.data_ptr() for m in maps)),
-        (ctypes.c_longlong * len(geom))(*geom), len(maps), pix.data_ptr(),
-        fov.data_ptr(), out.data_ptr(), _DTYPE_CODE[maps[0].dtype], B, N, P,
-        C, eps, torch.cuda.current_stream(dev).cuda_stream,
+        _pointers(packed), geom, len(maps), pix.data_ptr(), fov.data_ptr(),
+        out.data_ptr(), _DTYPE_CODE[maps[0].dtype], B, N, P, C, eps,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_lib.check(rc, "flosp_stereo_lift")
     flosp_stereo_lift.launches += 1
     return out
 
 
+def _launch_lift_backward(maps, projected_pix, fov_mask, project_res, eps,
+                          grad_out):
+    """The kernel call behind `flosp_stereo_lift_backward` (CUDA tensors):
+    the gradient of each map the operator received (not of its packed
+    copy), written channels-last: whole rows, 16 bytes a lane where they
+    allow it."""
+    name = "flosp_stereo_lift_backward"
+    packed, pix, fov, geom = _checked_inputs(
+        name, maps, projected_pix, fov_mask, project_res)
+    dev = maps[0].device
+    B, _, C = maps[0].shape[:3]
+    N, P = pix.shape[2], pix.shape[3]
+    if (grad_out.device != dev or grad_out.dtype != torch.float32
+            or tuple(grad_out.shape) != (B, N, C)):
+        raise ValueError(f"{name}: grad_out {tuple(grad_out.shape)} "
+                         f"{grad_out.dtype} on {grad_out.device} ((B, N, C) "
+                         f"float32 on {dev} expected)")
+    gout = grad_out.contiguous()
+    grads = [_grad_like(m) for m in maps]
+    rows = sum(B * 2 * m.shape[3] * m.shape[4] for m in maps)
+    lib = cuda_lib.library()
+    work = torch.empty(lib.occ_flosp_stereo_lift_backward_workspace(
+        B * 2 * len(maps) * N * P, rows, C), dtype=torch.uint8, device=dev)
+    rc = lib.occ_flosp_stereo_lift_backward(
+        _pointers(packed), geom, _pointers(grads), len(maps), pix.data_ptr(),
+        fov.data_ptr(), gout.data_ptr(), work.data_ptr(),
+        _DTYPE_CODE[maps[0].dtype], B, N, P, C, eps,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    cuda_lib.check(rc, name)
+    flosp_stereo_lift_backward.launches += 1
+    return grads
+
+
 flosp_stereo_lift.launches = 0
+flosp_stereo_lift_backward.launches = 0

@@ -81,7 +81,8 @@ N_PERTURB = 3
 TIE_MARGIN = 1e-4  # logits: top-2 gap under which an argmax may flip
 WEIGHT_SEED, BATCH_SEED, ACCUM_SEED, FIT_SEED = 21, 30, 40, 50
 LR = 2e-4
-KERNELS = ("flosp_stereo_lift", "crp_relation_matmul", "dw_filter_grad")
+KERNELS = ("flosp_stereo_lift", "flosp_stereo_lift_backward",
+           "crp_relation_matmul", "dw_filter_grad")
 JAX_SIDE = ("jax", "jaxlib", "flax", "optax", "occdepth_tpu")
 
 
@@ -168,10 +169,13 @@ def emulated_accum(cfg, model, first_grads: dict, second, world: int):
 def launch_counts() -> dict:
     from occdepth_tpu_torch.ops.crp_matmul import crp_relation_matmul
     from occdepth_tpu_torch.ops.dw_conv import dw_filter_grad
-    from occdepth_tpu_torch.ops.flosp_gather import flosp_stereo_lift
+    from occdepth_tpu_torch.ops.flosp_gather import (
+        flosp_stereo_lift,
+        flosp_stereo_lift_backward,
+    )
 
-    fns = dict(zip(KERNELS, (flosp_stereo_lift, crp_relation_matmul,
-                             dw_filter_grad)))
+    fns = dict(zip(KERNELS, (flosp_stereo_lift, flosp_stereo_lift_backward,
+                             crp_relation_matmul, dw_filter_grad)))
     counts = {k: fn.launches for k, fn in fns.items()}
     counts["dw_filter_grad_copies"] = dw_filter_grad.copies
     return counts
@@ -366,10 +370,12 @@ def compare(ranks: list, emu: dict, device) -> dict:
         and flips <= one["near_ties"] and comp_diff <= 2 * one["near_ties"])
     if device.type == "cuda":
         # per rank: the lift and K2 once per forward (2 steps, then fit's
-        # validation and this check's, 2 global batches each), K4 once
-        # per stride-1 depthwise conv of view 0 a step, no operand copied
+        # validation and this check's, 2 global batches each), the lift's
+        # backward kernel and K4 (once per stride-1 depthwise conv of view
+        # 0) each step, no operand copied
         n_fwd = 2 + 2 * 2
-        want = {"flosp_stereo_lift": n_fwd, "crp_relation_matmul": n_fwd,
+        want = {"flosp_stereo_lift": n_fwd, "flosp_stereo_lift_backward": 2,
+                "crp_relation_matmul": n_fwd,
                 "dw_filter_grad": 2 * fits[0]["n_dw"],
                 "dw_filter_grad_copies": 0}
         rep["fit"]["launches_ok"] = all(f["launches"] == want for f in fits)

@@ -9,6 +9,7 @@ best-by-metric checkpoints; the reference-checkpoint loader against the
 torch oracle; the eval CLI; and the slice with JAX blocked.
 """
 import dataclasses
+import functools
 import io
 import os
 import subprocess
@@ -100,9 +101,10 @@ def test_upsample_bn_pallas_matches_jax_shift():
                                       "bias": sd[f"_net.{i + 1}.bias"]}}
         stats[bn] = {"BatchNorm_0": {"mean": sd[f"_net.{i + 1}.running_mean"],
                                      "var": sd[f"_net.{i + 1}.running_var"]}}
-    ref = JaxUpSampleBN(cout, conv_impl="shift").apply(
+    ref = jax.jit(functools.partial(
+        JaxUpSampleBN(cout, conv_impl="shift").apply, train=False))(
         {"params": params, "batch_stats": stats}, x.transpose(0, 2, 3, 1),
-        skip.transpose(0, 2, 3, 1), train=False)
+        skip.transpose(0, 2, 3, 1))
     with torch.no_grad():
         ours = port(torch.from_numpy(x), torch.from_numpy(skip))
     np.testing.assert_allclose(ours.numpy(),
@@ -427,41 +429,55 @@ def test_eval_cli_needs_a_device_choice_without_cuda(monkeypatch):
             "semantic_kitti/multicam_flospdepth_crp_stereodepth_cascadecls")])
 
 
-def test_eval_slice_imports_no_jax(tmp_path):
+# The CPU validate below runs as a subprocess with JAX unimportable; it
+# starts with the module (`imports_run`), beside its in-process cases.
+_IMPORTS_CODE = textwrap.dedent("""
+    import sys
+    for name in ("jax", "flax", "jaxlib", "optax", "occdepth_tpu"):
+        sys.modules[name] = None
+    import occdepth_tpu_torch.data.augment
+    import occdepth_tpu_torch.data.kitti
+    import occdepth_tpu_torch.data.kitti_io
+    import occdepth_tpu_torch.ops.conv2d_shift
+    import occdepth_tpu_torch.scripts.eval
+    from occdepth_tpu_torch.data.kitti import Loader
+    from occdepth_tpu_torch.testing import synthetic_dataset, tiny_kitti_config
+    from occdepth_tpu_torch.training import Trainer
+
+    cfg = tiny_kitti_config(batch_size_per_gpu=2,
+                            decoder_conv_impl="pallas")
+    trainer = Trainer(cfg, sys.argv[1], device="cpu")
+    stats = trainer.validate(Loader(synthetic_dataset(cfg, 3, seed=2), 2,
+                                    shuffle=False, drop_last=False,
+                                    num_workers=0))
+    assert stats["n_frames"] == 3, stats["n_frames"]
+    assert stats["conf"].sum() == 3 * 32 * 32 * 16, stats["conf"].sum()
+    jax_side = sorted(
+        m for m, mod in sys.modules.items() if mod is not None
+        and (m.split(".")[0] in ("jax", "flax", "jaxlib", "optax",
+                                 "occdepth_tpu")))
+    assert not jax_side, jax_side
+    print("ok")
+""")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def imports_run(tmp_path_factory):
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _IMPORTS_CODE,
+         str(tmp_path_factory.mktemp("imports"))], cwd=REPO, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    yield proc
+    if proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+
+
+def test_eval_slice_imports_no_jax(imports_run):
     """The eval CLI and the data modules import, and a CPU validate runs
     at decoder_conv_impl=pallas, with jax, flax, optax and the JAX package
-    unimportable."""
-    code = textwrap.dedent("""
-        import sys
-        for name in ("jax", "flax", "jaxlib", "optax", "occdepth_tpu"):
-            sys.modules[name] = None
-        import occdepth_tpu_torch.data.augment
-        import occdepth_tpu_torch.data.kitti
-        import occdepth_tpu_torch.data.kitti_io
-        import occdepth_tpu_torch.ops.conv2d_shift
-        import occdepth_tpu_torch.scripts.eval
-        from occdepth_tpu_torch.data.kitti import Loader
-        from occdepth_tpu_torch.testing import synthetic_dataset, tiny_kitti_config
-        from occdepth_tpu_torch.training import Trainer
-
-        cfg = tiny_kitti_config(batch_size_per_gpu=2,
-                                decoder_conv_impl="pallas")
-        trainer = Trainer(cfg, sys.argv[1], device="cpu")
-        stats = trainer.validate(Loader(synthetic_dataset(cfg, 3, seed=2), 2,
-                                        shuffle=False, drop_last=False,
-                                        num_workers=0))
-        assert stats["n_frames"] == 3, stats["n_frames"]
-        assert stats["conf"].sum() == 3 * 32 * 32 * 16, stats["conf"].sum()
-        jax_side = sorted(
-            m for m, mod in sys.modules.items() if mod is not None
-            and (m.split(".")[0] in ("jax", "flax", "jaxlib", "optax",
-                                     "occdepth_tpu")))
-        assert not jax_side, jax_side
-        print("ok")
-    """)
-    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
-    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
-                          cwd=REPO, env=env, capture_output=True, text=True,
-                          timeout=300)
-    assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert proc.stdout.strip().endswith("ok")
+    unimportable (`_IMPORTS_CODE`)."""
+    stdout, stderr = imports_run.communicate(timeout=300)
+    assert imports_run.returncode == 0, stdout + stderr
+    assert stdout.strip().endswith("ok")

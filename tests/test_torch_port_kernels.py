@@ -45,6 +45,8 @@ from occdepth_tpu_torch.ops.dw_conv import (
 )
 from occdepth_tpu_torch.ops.flosp_gather import (
     flosp_stereo_lift,
+    flosp_stereo_lift_backward,
+    flosp_stereo_lift_backward_reference,
     flosp_stereo_lift_reference,
 )
 from occdepth_tpu_torch.ops.matmul_probe import (
@@ -934,6 +936,72 @@ def test_flosp_stereo_lift_kernel_matches_plain(cuda_device, dtype, layout,
     torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
 
 
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["nchw", "channels_last"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [(2, 20000, 1, 32, (93, 305), False),
+                                  (1, 3001, 4, 24, (37, 61), True),
+                                  (2, 777, 3, 20, (21, 37), False),
+                                  (2, 5000, 1, 100, (60, 80), False),
+                                  (1, 5000, 1, 200, (60, 80), True)],
+                         ids=["serve_like", "p4_c24_off_map", "p3_c20",
+                              "nyu_c100", "nyu_c200_off_map"])
+def test_flosp_stereo_lift_backward_kernel_matches_plain(cuda_device, dtype,
+                                                        layout, case):
+    """The lift's backward kernel vs its plain version
+    (`flosp_stereo_lift_backward_reference`) in one call, on `lift_inputs`'
+    edge cases (and in-FOV points past every map, whose voxels' rows read
+    NaN in both): fp32 sums of each row's terms in another order, within
+    1e-5 of max(1, max|ref|); bf16 one rounding of those sums apart (2^-7
+    of each value).  Each gradient has its map's shape and dtype,
+    channels-last, and a second call gives the same bits."""
+    B, N, P, C, hw, off_map = case
+    maps, pix, fov, scales = _lift_case(cuda_device, dtype, layout, B, N, P,
+                                        C, hw, seed=P + 7)
+    if off_map:  # view 1: y at the last row, x past the right edge at
+        # every scale; view 0 in FOV on the map, so its rows read the NaN
+        for v, xy in ((1, [hw[1] + 76, hw[0] - 1]), (0, [1, 1])):
+            pix[:, v, -3:, 0] = torch.tensor(xy, dtype=pix.dtype,
+                                             device=pix.device)
+            fov[:, v, -3:, 0] = True
+    cot = torch.randn(B, N, C, device=cuda_device,
+                      generator=torch.Generator(cuda_device).manual_seed(P))
+    before = flosp_stereo_lift_backward.launches
+    got = flosp_stereo_lift_backward(maps, pix, fov, scales, cot)
+    again = flosp_stereo_lift_backward(maps, pix, fov, scales, cot)
+    torch.cuda.synchronize()
+    assert flosp_stereo_lift_backward.launches == before + 2
+    want = flosp_stereo_lift_backward_reference(maps, pix, fov, scales, 1e-8,
+                                                cot)
+    for a, a2, b, m in zip(got, again, want, maps):
+        assert a.shape == m.shape and a.dtype == m.dtype
+        assert a.stride() == b.stride()
+        assert a.permute(0, 1, 3, 4, 2).is_contiguous()
+        assert torch.equal(_bits(a), _bits(a2))
+        scale = max(1.0, b.float().nan_to_num().abs().max().item())
+        torch.testing.assert_close(
+            a.float(), b.float(), equal_nan=True, atol=1e-5 * scale,
+            rtol=0 if dtype == torch.float32 else 2 ** -7)
+    assert off_map == any(torch.isnan(b.float()).any() for b in want)
+
+
+@pytest.mark.cuda
+def test_flosp_stereo_lift_backward_is_bitwise_repeatable(cuda_device):
+    """Two calls at TartanAir's grid (691,200 voxels, C = 32, bf16, a
+    480x640 image) give equal bits: no floating-point atomics."""
+    maps, pix, fov, scales = _lift_case(cuda_device, torch.bfloat16, "nchw",
+                                        1, 691200, 1, 32, (480, 640), seed=3)
+    cot = torch.randn(1, 691200, 32, device=cuda_device)
+    first = flosp_stereo_lift_backward(maps, pix, fov, scales, cot)
+    second = flosp_stereo_lift_backward(maps, pix, fov, scales, cot)
+    assert all(torch.equal(_bits(a), _bits(b))
+               for a, b in zip(first, second))
+
+
 @pytest.mark.cuda
 def test_flosp_stereo_lift_gradient_matches_plain_autograd(cuda_device):
     maps, pix, fov, scales = _lift_case(cuda_device, torch.float32, "nchw",
@@ -980,16 +1048,15 @@ def test_lift_and_fuse_raise_on_unsupported_input(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("op", ["flosp_stereo_lift", "crp_relation_matmul",
-                                "conv3x3"])
+@pytest.mark.parametrize("op", ["flosp_stereo_lift",
+                                "flosp_stereo_lift_backward",
+                                "crp_relation_matmul", "conv3x3"])
 def test_registered_ops_pass_opcheck_on_cuda(cuda_device, op):
     """The operators' CUDA implementations (the kernels) against their fake
     implementations (shapes, strides, dtypes) and the autograd
     registration, on small card inputs, fp32 and bf16.  The lift's
-    gradient (autograd of its plain version: an index_add, whose atomics
-    sum in a different order on every run) is compared between eager and
-    traced runs in fp32 only; in bf16 each order rounds differently, so
-    the bf16 lift is checked without gradients."""
+    gradient is its deterministic backward kernel (the backward operator),
+    so eager and traced runs agree in both dtypes."""
     g = torch.Generator(device=cuda_device).manual_seed(3)
 
     def randn(*shape, dtype=torch.float32):
@@ -1000,9 +1067,14 @@ def test_registered_ops_pass_opcheck_on_cuda(cuda_device, op):
         if op == "flosp_stereo_lift":
             maps, pix, fov, scales = _lift_case(cuda_device, dtype, "nchw", 2,
                                                 300, 1, 32, (21, 37), seed=2)
-            grad = dtype == torch.float32
-            cases.append(([m.requires_grad_(grad) for m in maps], pix, fov,
+            cases.append(([m.requires_grad_() for m in maps], pix, fov,
                           list(scales), 1e-8))
+        elif op == "flosp_stereo_lift_backward":
+            maps, pix, fov, scales = _lift_case(cuda_device, dtype,
+                                                "channels_last", 2, 300, 1,
+                                                32, (21, 37), seed=4)
+            cases.append((maps, pix, fov, list(scales), 1e-8,
+                          randn(2, 300, 32)))
         elif op == "crp_relation_matmul":
             cases.append((randn(2, 4, 512, 64, dtype=dtype).requires_grad_(),
                           randn(2, 64, 32, dtype=dtype).requires_grad_()))

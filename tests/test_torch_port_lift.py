@@ -3,7 +3,9 @@ gather and the sum over scales) and K2 batched over relations, on the CPU:
 plain versions and CPU wrappers vs the JAX package's `sfa_lift` (its K1
 through the jnp formula and through the Pallas kernel in interpret mode),
 CPMegaVoxels vs the flax module, the split-bf16 sigmoid, and the two
-autograd Functions' backward formulas.
+registered operators' gradients: the lift's closed-form backward
+(`flosp_stereo_lift_backward_reference`, the kernel's oracle) vs `jax.vjp`
+of JAX `sfa_lift` and vs autograd of the plain lift, and K2's formula.
 
 Inputs come from numpy with a seed at tiny sizes (256 voxels, C = 8 or 16,
 four scales); tolerances are stated where they are used.
@@ -23,6 +25,7 @@ from occdepth_tpu.models.sfa import sfa_lift as jax_sfa_lift
 from occdepth_tpu.training.convert_torch import _map_crp, _Mapper, _nest
 from occdepth_tpu_torch.models import sfa as port_sfa
 from occdepth_tpu_torch.models.crp3d import CPMegaVoxels
+from occdepth_tpu_torch.ops import flosp_gather
 from occdepth_tpu_torch.ops.crp_matmul import (
     crp_relation_matmul,
     crp_relation_matmul_reference,
@@ -31,6 +34,8 @@ from occdepth_tpu_torch.ops.crp_matmul import (
 from occdepth_tpu_torch.ops.flosp_gather import (
     channels_last_map,
     flosp_stereo_lift,
+    flosp_stereo_lift_backward,
+    flosp_stereo_lift_backward_reference,
     flosp_stereo_lift_reference,
 )
 from occdepth_tpu_torch.testing import lift_inputs, randomize_weights
@@ -154,10 +159,11 @@ def test_channels_last_map_copies_only_nchw():
 
 
 def test_lift_backward_is_autograd_of_the_plain_version():
-    """The registered operator's gradient (the plain version recomputed
-    and differentiated) vs autograd straight through the plain version,
-    on CPU tensors, where the operator's forward is the plain version: the
-    same fp32 formula, so exact up to 1e-6."""
+    """The registered operator's gradient (the backward operator, whose CPU
+    implementation is the closed form `flosp_stereo_lift_backward_reference`)
+    vs autograd straight through the plain version, on CPU tensors, where
+    the operator's forward is the plain version: the same fp32 derivative,
+    summed per row in the same order, so exact up to 1e-6."""
     maps, pix, fov = _inputs(4, C=8)
     tpix, tfov = torch.from_numpy(pix), torch.from_numpy(fov)
     cot = torch.from_numpy(np.random.RandomState(9).randn(
@@ -173,6 +179,155 @@ def test_lift_backward_is_autograd_of_the_plain_version():
     for a, b in zip(*grads):
         if b is not None:
             torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+CLAMP_VOXELS = slice(40, 44)  # view 0's points all on one pixel's row ...
+CLAMP_XY = (5, 7)  # ... at scale 1, whose norm is under eps (or 0)
+OFF_MAP_VOXELS = slice(50, 53)  # view 1's point 0 in FOV but off every map
+
+
+def _bwd_inputs(P, clamp_scale, off_map):
+    """`_inputs(P)` (out-of-FOV points, negative coordinates, one-view
+    voxels, points on each map's last row and column) plus the backward's
+    edge cases: voxels whose view-0 mean lies on the eps clamp (the scale-1
+    row at CLAMP_XY scaled by `clamp_scale`: 1e-10 leaves |f| < eps, 0 an
+    exact zero row) and, with `off_map`, in-FOV points whose flat index
+    falls past every scale's map (JAX reads NaN there and drops their
+    updates; the port does both too).  Plus the output's cotangent."""
+    maps, pix, fov = _inputs(P)
+    maps = {s: m.copy() for s, m in maps.items()}
+    pix, fov = pix.copy(), fov.copy()
+    x0, y0 = CLAMP_XY
+    pix[:, 0, CLAMP_VOXELS] = (x0, y0)
+    fov[:, 0, CLAMP_VOXELS] = True
+    maps[1][:, 0, y0, x0] *= clamp_scale
+    if off_map:
+        H, W = HW
+        pix[:, 1, OFF_MAP_VOXELS, 0] = (W + 76, H - 1)
+        fov[:, 1, OFF_MAP_VOXELS, 0] = True
+        for s in SCALES:  # past the map, not its sentinel row nor wrapped
+            h, w = maps[s].shape[2:4]
+            assert (H - 1) // s * w + (W + 76) // s > h * w
+    cot = np.random.RandomState(20 + P).randn(
+        2, int(np.prod(SCENE)), 16).astype(np.float32)
+    return maps, pix, fov, cot
+
+
+@jax.jit
+def _jax_lift_grads(maps, pix, fov, cot):
+    """`jax.vjp` of JAX `sfa_lift` (K1 through jnp): each map's gradient
+    for the output cotangent cot (B, N, C); one trace per P."""
+    _, vjp = jax.vjp(lambda m: jax_sfa_lift(
+        m, pix, fov, SCALES, SCENE, "kitti", False), maps)
+    return vjp(cot.reshape(cot.shape[0], *SCENE, cot.shape[-1]))[0]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_lift_vjp(P, dtype):
+    """`_jax_lift_grads` on `_bwd_inputs(P, 1e-10, True)`, NHWC numpy; for
+    dtype "bf16" the maps are rounded to bf16 first and differentiated in
+    fp32."""
+    maps, pix, fov, cot = _bwd_inputs(P, 1e-10, True)
+    jmaps = {f"1_{s}": jnp.asarray(m) for s, m in maps.items()}
+    if dtype == "bf16":
+        jmaps = {k: v.astype(jnp.bfloat16).astype(jnp.float32)
+                 for k, v in jmaps.items()}
+    out = _jax_lift_grads(jmaps, jnp.asarray(pix), jnp.asarray(fov),
+                          jnp.asarray(cot))
+    return {s: np.asarray(out[f"1_{s}"]) for s in SCALES}
+
+
+def _assert_rows_close(ours, ref, rtol, row_rtol):
+    """NaN in the same places; elsewhere |ours - ref| <= rtol |ref| +
+    row_rtol max(1, max|ref| of the map row): rows on the eps clamp carry
+    gradients ~1e8 (k = eps in the denominator), the others O(1)."""
+    ours, ref = np.asarray(ours, np.float64), np.asarray(ref, np.float64)
+    np.testing.assert_array_equal(np.isnan(ours), np.isnan(ref))
+    row = np.maximum(1.0, np.nanmax(np.abs(ref), axis=-1, keepdims=True))
+    ok = np.isnan(ref) | (np.abs(ours - ref) <= rtol * np.abs(ref)
+                          + row_rtol * row)
+    assert ok.all(), (np.argwhere(~ok)[:5], ours[~ok][:5], ref[~ok][:5])
+
+
+@pytest.mark.parametrize("layout", ["nchw", "channels_last"])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("P", [1, 4])
+def test_lift_backward_matches_jax_vjp(P, dtype, layout):
+    """The plain backward `flosp_stereo_lift_backward_reference` (the CPU
+    implementation of the backward operator and the kernel's oracle) vs
+    `jax.vjp` of JAX `sfa_lift` with K1 through jnp, edge cases included
+    (`_bwd_inputs`).  fp32: the same closed form, summed per row in another
+    order, within 1e-5 of the row's scale.  bf16: JAX's VJP of bf16 maps
+    rounds each point's term to bf16 and scatter-adds in bf16, while the
+    port sums in fp32 and rounds once; so the port is held to JAX's VJP of
+    the same bf16 values taken in fp32, within one bf16 rounding (2^-8 of
+    each value) on top of the fp32 bound.  The gradient has each map's
+    shape and dtype, channels-last whatever the map's layout."""
+    maps, pix, fov, cot = _bwd_inputs(P, 1e-10, True)
+    tdtype = torch.float32 if dtype == "fp32" else torch.bfloat16
+    tmaps = _torch_maps(maps, tdtype, layout)
+    grads = flosp_stereo_lift_backward_reference(
+        tmaps, torch.from_numpy(pix), torch.from_numpy(fov), SCALES, 1e-8,
+        torch.from_numpy(cot))
+    ref = _jax_lift_vjp(P, dtype)
+    for s, g, m in zip(SCALES, grads, tmaps):
+        assert g.shape == m.shape and g.dtype == m.dtype
+        assert g.permute(0, 1, 3, 4, 2).is_contiguous()
+        _assert_rows_close(g.float().permute(0, 1, 3, 4, 2).numpy(), ref[s],
+                           0.0 if dtype == "fp32" else 2.0 ** -8, 1e-5)
+    # the edge cases are there: NaN rows, and clamp rows ~1e8
+    assert np.isnan(ref[1]).any() and np.nanmax(np.abs(ref[1])) > 1e6
+
+
+@pytest.mark.parametrize("P", [1, 4])
+def test_lift_backward_reference_is_autograd_of_the_plain_lift(P):
+    """The closed form vs autograd of `flosp_stereo_lift_reference`, the
+    second oracle, with an exact zero row under the clamp voxels (autograd
+    of the norm takes 0 there, as the closed form's [|f| > eps] does):
+    the same fp32 derivative summed in the same order, within 1e-6 of the
+    row's scale.  (No off-map points: the plain forward's index_select
+    does not read NaN there.)"""
+    maps, pix, fov, cot = _bwd_inputs(P, 0.0, False)
+    tpix, tfov = torch.from_numpy(pix), torch.from_numpy(fov)
+    leaves = [m.clone().requires_grad_()
+              for m in _torch_maps(maps, torch.float32, "nchw")]
+    flosp_stereo_lift_reference(leaves, tpix, tfov, SCALES).backward(
+        torch.from_numpy(cot))
+    grads = flosp_stereo_lift_backward_reference(
+        [m.detach() for m in leaves], tpix, tfov, SCALES, 1e-8,
+        torch.from_numpy(cot))
+    for g, leaf in zip(grads, leaves):
+        _assert_rows_close(g.permute(0, 1, 3, 4, 2).numpy(),
+                           leaf.grad.permute(0, 1, 3, 4, 2).numpy(), 0.0,
+                           1e-6)
+    assert leaves[0].grad.abs().max() > 1e6  # the clamp rows
+
+
+def test_lift_cpu_gradient_goes_through_the_backward_operator(monkeypatch):
+    """On CPU tensors the lift's registered gradient is the backward
+    operator `occdepth::flosp_stereo_lift_backward` (its CPU implementation
+    the plain backward, once per backward pass), nothing launches, and the
+    operator called alone gives the same gradients.  (`opcheck` of the
+    operator runs on the card, `tests/test_torch_port_kernels.py`; the
+    forward's, in `tests/test_torch_port_outputs.py`, traces this gradient
+    through its fake implementation.)"""
+    calls = []
+    plain = flosp_gather.flosp_stereo_lift_backward_reference
+    monkeypatch.setattr(flosp_gather, "flosp_stereo_lift_backward_reference",
+                        lambda *a: calls.append(1) or plain(*a))
+    maps, pix, fov, cot = _bwd_inputs(1, 1.0, False)
+    tpix, tfov = torch.from_numpy(pix), torch.from_numpy(fov)
+    leaves = [m.requires_grad_() for m in _torch_maps(
+        maps, torch.float32, "channels_last")]
+    launches = flosp_stereo_lift_backward.launches
+    flosp_stereo_lift(leaves, tpix, tfov, SCALES).backward(
+        torch.from_numpy(cot))
+    assert calls == [1] and flosp_stereo_lift_backward.launches == launches
+    direct = flosp_stereo_lift_backward(
+        [m.detach() for m in leaves], tpix, tfov, SCALES,
+        torch.from_numpy(cot))
+    for g, leaf in zip(direct, leaves):
+        assert torch.equal(g, leaf.grad) and g.stride() == leaf.grad.stride()
 
 
 def test_split_bf16_reproduces_fp32():

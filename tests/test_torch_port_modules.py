@@ -5,12 +5,14 @@ SFA lift (holder of kernel K1) and CPMegaVoxels (holder of kernel K2).
 Weights reach the flax modules through the JAX package's own converter.
 """
 import dataclasses
+import functools
 import os
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 import occdepth_tpu.config as jax_config
@@ -154,12 +156,12 @@ def test_frustum_grid_matches(flip):
     ours = frustum_grid(FrustumGridSpec(**kw), torch.from_numpy(l2c),
                         torch.from_numpy(c2i.copy()), torch.from_numpy(ida))
     assert ours.shape == (2, 2, 10, 8, 6, 3)
-    spec = JaxSpec(**kw)
+    # jitted: one compile for the four (batch, view) grids, not one per op
+    grid = jax.jit(functools.partial(jax_frustum_grid, JaxSpec(**kw)))
     for b in range(2):
         for v in range(2):
-            ref = jax_frustum_grid(spec, jnp.asarray(l2c[b, v]),
-                                   jnp.asarray(c2i[b, v]),
-                                   jnp.asarray(ida[b, v]))
+            ref = grid(jnp.asarray(l2c[b, v]), jnp.asarray(c2i[b, v]),
+                       jnp.asarray(ida[b, v]))
             np.testing.assert_allclose(ours[b, v].numpy(), np.asarray(ref),
                                        atol=1e-4)
     ones = grid_sample_3d_ones((12, H // 8, W // 8), ours)
@@ -197,8 +199,9 @@ def test_sfa_lift_matches(pattern_points):
     fov = ((pix[..., 0] >= 0) & (pix[..., 0] < W) & (pix[..., 1] >= 0)
            & (pix[..., 1] < H) & (rng.rand(B, V, N, pattern_points) > 0.2))
     pix = pix.astype(np.int32)
-    ref = jax_sfa_lift({k: jnp.asarray(v) for k, v in maps.items()},
-                       jnp.asarray(pix), jnp.asarray(fov), res, scene, "kitti")
+    ref = jax.jit(jax_sfa_lift, static_argnums=(3, 4, 5))(
+        {k: jnp.asarray(v) for k, v in maps.items()}, jnp.asarray(pix),
+        jnp.asarray(fov), res, scene, "kitti")
     ours = sfa_lift(
         {k: torch.from_numpy(v).permute(0, 1, 4, 2, 3)
          for k, v in maps.items()},
@@ -217,9 +220,9 @@ def test_cp_mega_voxels_matches():
     x = np.random.RandomState(8).randn(B, feature, *size).astype(np.float32)
     with torch.no_grad():
         ours = mod(torch.from_numpy(x))
-    ref = JaxCPMegaVoxels(feature, size, n_relations=4, bn_momentum=0.1
-                          ).apply(variables, jnp.asarray(x.transpose(0, 2, 3, 4, 1)),
-                                  False)
+    ref = jax.jit(JaxCPMegaVoxels(feature, size, n_relations=4,
+                                  bn_momentum=0.1).apply, static_argnums=2)(
+        variables, jnp.asarray(x.transpose(0, 2, 3, 4, 1)), False)
     np.testing.assert_allclose(ours["x"].numpy().transpose(0, 2, 3, 4, 1),
                                np.asarray(ref["x"]), atol=1e-4)
     np.testing.assert_allclose(ours["P_logits"].numpy(),
@@ -245,7 +248,8 @@ def test_segmentation_head_matches(cascade):
     x = np.random.RandomState(9).randn(1, 8, 8, 8, 6).astype(np.float32)
     with torch.no_grad():
         ssc, occ = mod(torch.from_numpy(x))
-    ref = JaxSegHead(8, 20, cascade_cls=cascade).apply(
+    ref = jax.jit(JaxSegHead(8, 20, cascade_cls=cascade).apply,
+                  static_argnums=2)(
         variables, jnp.asarray(x.transpose(0, 2, 3, 4, 1)), False)
     ref_ssc, ref_occ = ref if cascade else (ref, None)
     np.testing.assert_allclose(ssc.numpy().transpose(0, 2, 3, 4, 1),

@@ -149,11 +149,13 @@ def test_virtual_view_matches_jax():
     depth = rs.uniform(0.3, 6.0, (2, 1, 64, 80)).astype(np.float32)
     depth[rs.rand(2, 1, 64, 80) < 0.1] = 0.0
     bf = np.float32(0.1 * 518.8579)
+    # jitted per scale: one compile each, not one per op
+    warp = jax.jit(jax_virtual_view, static_argnums=2)
     for scale in (1, 4):
         feat = rs.randn(2, 16, 64 // scale, 80 // scale).astype(np.float32)
         ours = _virtual_view(torch.from_numpy(feat), torch.from_numpy(depth),
                              scale, torch.tensor(bf)).numpy()
-        ref = np.asarray(jax_virtual_view(
+        ref = np.asarray(warp(
             jnp.asarray(feat.transpose(0, 2, 3, 1)), jnp.asarray(depth),
             scale, jnp.asarray(bf))).transpose(0, 3, 1, 2)
         assert ours.shape == feat.shape and ours.dtype == np.float32

@@ -463,9 +463,11 @@ def test_cli_needs_cuda_unless_told_cpu(tmp_path, module):
         main(["--config", FLAGSHIP] + argv + TINY)
 
 
-def test_output_modules_import_no_jax(tmp_path):
-    """Every new module imports, and dump_batch and the validator run,
-    with jax, flax and the JAX package unimportable."""
+@pytest.fixture(scope="module", autouse=True)
+def imports_run(tmp_path_factory):
+    """`test_output_modules_import_no_jax`'s subprocess, started with the
+    module so that it runs beside the in-process cases."""
+    tmp_path = tmp_path_factory.mktemp("imports")
     code = textwrap.dedent(f"""
         import sys
         for name in ("jax", "flax", "jaxlib", "optax", "occdepth_tpu"):
@@ -483,9 +485,19 @@ def test_output_modules_import_no_jax(tmp_path):
         assert len(valid.validate_dir({str(tmp_path)!r})) == 11
         print("ok")
     """)
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
-                         capture_output=True, text=True, timeout=300,
-                         env=dict(os.environ, PYTHONPATH=REPO))
-    assert out.returncode == 0, out.stderr[-2000:]
-    assert out.stdout.strip().endswith("ok")
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=REPO,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=dict(os.environ, PYTHONPATH=REPO))
+    yield proc
+    if proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+
+
+def test_output_modules_import_no_jax(imports_run):
+    """Every new module imports, and dump_batch and the validator run,
+    with jax, flax and the JAX package unimportable."""
+    stdout, stderr = imports_run.communicate(timeout=300)
+    assert imports_run.returncode == 0, stderr[-2000:]
+    assert stdout.strip().endswith("ok")
 

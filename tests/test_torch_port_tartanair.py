@@ -9,6 +9,7 @@ against the JAX model on one seeded weight set (port -> `convert_state_dict`
 JAX dataset on the JAX toy tree; the pose helpers; and the train and eval
 CLIs on the CPU with JAX blocked.
 """
+import functools
 import glob
 import json
 import os
@@ -134,8 +135,8 @@ def test_block_matches_jax(kind):
     x = np.random.RandomState(1).randn(1, 8, 6, 5, 4).astype(np.float32)
     with torch.no_grad():
         ours = port(torch.from_numpy(x)).numpy()
-    ref = flax_mod.apply(variables, jnp.asarray(x.transpose(0, 2, 3, 4, 1)),
-                         train=False)
+    ref = jax.jit(functools.partial(flax_mod.apply, train=False))(
+        variables, jnp.asarray(x.transpose(0, 2, 3, 4, 1)))
     ref = np.asarray(ref).transpose(0, 4, 1, 2, 3)
     assert ours.shape == ref.shape == ((1, 4, 6, 5, 4) if kind ==
                                        "convblock3d" else (1, 2, 6, 5, 4))

@@ -192,10 +192,10 @@ def test_depth_cls_loss():
 def test_resize_nearest():
     rng = np.random.RandomState(7)
     x = rng.randn(2, 13, 29).astype(np.float32)
+    resize = jax.jit(jax_resize_nearest, static_argnums=1)
     for size in ((20, 28), (13, 29), (6, 50)):
         ours = resize_nearest(torch.from_numpy(x), size).numpy()
-        ref = np.asarray(jax_resize_nearest(jnp.asarray(x)[..., None],
-                                            size))[..., 0]
+        ref = np.asarray(resize(jnp.asarray(x)[..., None], size))[..., 0]
         np.testing.assert_array_equal(ours, ref)
 
 
@@ -230,13 +230,13 @@ def test_confusion_update_and_metrics():
     y_true = rng.choice(list(range(C)) + [255], size=(2, 9, 8, 5)).astype(np.int32)
     y_pred = rng.randint(0, C, size=y_true.shape).astype(np.int32)
     valid = np.array([True, False])
+    update = jax.jit(jax_metrics.confusion_update, static_argnums=2)
     for sv in (None, valid):
         comp, conf = confusion_update(
             torch.from_numpy(y_pred), torch.from_numpy(y_true), C,
             None if sv is None else torch.from_numpy(sv))
-        rc, rf = jax_metrics.confusion_update(
-            jnp.asarray(y_pred), jnp.asarray(y_true), C,
-            None if sv is None else jnp.asarray(sv))
+        rc, rf = update(jnp.asarray(y_pred), jnp.asarray(y_true), C,
+                        None if sv is None else jnp.asarray(sv))
         np.testing.assert_array_equal(comp.numpy(), np.asarray(rc))
         np.testing.assert_array_equal(conf.numpy(), np.asarray(rf))
     ours, ref = SSCMetrics(C), jax_metrics.SSCMetrics(C)
@@ -316,8 +316,8 @@ def test_kernel_autograd_on_cpu_matches_jax_grad():
     t = [torch.from_numpy(a).requires_grad_(i < 2)
          for i, a in enumerate((f0, f1, m0, m1))]
     stereo_cosine_fuse(*t).backward(torch.from_numpy(cot))
-    ref = jax.grad(lambda a, b: jnp.sum(jax_fuse(
-        a, b, jnp.asarray(m0), jnp.asarray(m1)) * cot), argnums=(0, 1))(
+    ref = jax.jit(jax.grad(lambda a, b: jnp.sum(jax_fuse(
+        a, b, jnp.asarray(m0), jnp.asarray(m1)) * cot), argnums=(0, 1)))(
         jnp.asarray(f0), jnp.asarray(f1))
     for ours, r in zip(t[:2], ref):
         np.testing.assert_allclose(ours.grad.numpy(), np.asarray(r),
@@ -328,8 +328,8 @@ def test_kernel_autograd_on_cpu_matches_jax_grad():
     cot = rng.randn(64, 24).astype(np.float32)
     tp, tm = (torch.from_numpy(a).requires_grad_() for a in (p, mega))
     crp_relation_matmul(tp, tm).backward(torch.from_numpy(cot))
-    ref = jax.grad(lambda a, b: jnp.sum(jax_crp(a, b) * cot),
-                   argnums=(0, 1))(jnp.asarray(p), jnp.asarray(mega))
+    ref = jax.jit(jax.grad(lambda a, b: jnp.sum(jax_crp(a, b) * cot),
+                           argnums=(0, 1)))(jnp.asarray(p), jnp.asarray(mega))
     for ours, r in zip((tp, tm), ref):
         np.testing.assert_allclose(ours.grad.numpy(), np.asarray(r),
                                    rtol=1e-5, atol=1e-5)
@@ -370,10 +370,14 @@ def test_adamw_clip_update_matches_optax(grad_scale):
         gradient_clip_val=35.0, lr=1e-2, weight_decay=0.1), spe)
     jp = {k: jnp.asarray(v) for k, v in init.items()}
     state = tx.init(jp)
+
+    @jax.jit
+    def step(g, state, jp):
+        upd, state = tx.update(g, state, jp)
+        return optax.apply_updates(jp, upd), state
+
     for g in grads:
-        upd, state = tx.update({k: jnp.asarray(v) for k, v in g.items()},
-                               state, jp)
-        jp = optax.apply_updates(jp, upd)
+        jp, state = step({k: jnp.asarray(v) for k, v in g.items()}, state, jp)
 
     tp = {k: torch.nn.Parameter(torch.from_numpy(v.copy()))
           for k, v in init.items()}
