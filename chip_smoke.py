@@ -10,10 +10,16 @@ Phases, one line each:
      SS and RS products (N = 48, 96, 128) of the fp32 kernels, each
      against the product computed on the host; the TF32 split kernel
      against its plain version, bit for bit;
+ 2c. scripts/profile_lift.py in a process of its own: the fused lift's
+     forward and backward split by kernel (torch.profiler) at the five
+     train rigs (batch 1), and the lift's own train-step peak memory;
+     the kernel phases below log these splits at their rig;
   3. K1 stereo_cosine_fuse vs its plain PyTorch version at the lift's
      shape (batch 2 x 262,144 voxel rows, C=32, two strided views of one
      fp32 tensor, masks ~30% zero), with device times (CUDA-graph
-     replays); the model's paths no longer run it (3b fuses it);
+     replays); then its backward kernel (df0, df1, dm0, dm1) vs the plain
+     closed form on the same inputs, with its times and bytes bound; the
+     model's paths run neither (3b fuses K1);
  3b. the fused lift flosp_stereo_lift (gather, K1's fusion and the sum
      over scales in one kernel) vs its plain version at the serving shape
      (batch 2, 262,144 voxels, C=32, maps at 1_1..1_8 of a 370x1220
@@ -24,7 +30,10 @@ Phases, one line each:
      so its channels-last copies are timed, and channels-last maps), the
      plain version, today's per-scale path (index_select + K1 per scale)
      as its yardstick, and the bytes bound (coordinates, masks, each
-     distinct gathered row once, the output once);
+     distinct gathered row once, the output once); the packing of NCHW
+     maps and the gather apart by kernel (torch.profiler); one train-step
+     lift packs each map once; K3's packing kernel alone on the four maps
+     (its plain version, channels_last copy, bytes bound);
   4. K2 crp_relation_matmul vs its plain version at the CRP's shape, the
      four relations in one call (batch 2, R=4, N=4096, M=512, C=256, the
      model's transposed operand views), in bf16 (wgmma) and fp32 (3xTF32
@@ -63,8 +72,10 @@ Phases, one line each:
      channels-last, two calls equal bit for bit, device times of the
      kernel and the plain version (CUDA-graph replays), the bytes bound
      (grad_out and the coordinates read once, each distinct row that an
-     in-FOV point names read once, every row written once) and its share; the kernel must not read under its
-     bound and must beat the plain version;
+     in-FOV point names read once, every row written once) and its share,
+     and its device ms split by kernel (keys, each radix pass, bounds,
+     the contribution pass, the row pass; torch.profiler); the kernel
+     must not read under its bound and must beat the plain version;
   9. one tiny-config train step (fp32, TF32 off) on CUDA (kernels) vs the
      CPU (plain versions): loss terms, gradients, running statistics and
      updated parameters, within the fp32-noise-aware bounds of
@@ -78,7 +89,8 @@ Phases, one line each:
      view 0 per step with no operand copied to NCHW, the fused lift and
      K2 once per step and per validation forward, the lift's backward
      kernel once per step, the plain lift (forward or backward) on no
-     CUDA tensor, the standalone K1 never; val/mIoU logged,
+     CUDA tensor, the standalone K1 never, each map packed at most once
+     a forward (the backward reads the forward's copies); val/mIoU logged,
      best_val_mIoU kept; metrics.jsonl written; a second Trainer resumes
      at step 3;
  11. K3 conv3x3 (implicit GEMM on 128-pixel tiles: one TMA halo load per
@@ -126,8 +138,10 @@ Phases, one line each:
      480x640 stereo PNGs, 120x48x120 labels, a rig that puts ~80% of the
      voxels in both views): the fused lift into 691,200 voxels (batch 1,
      the tree's projection and edge-case points, bf16 and fp32, NCHW and
-     channels-last) and its forward + backward time, and its backward
-     kernel as in phase 8 (two calls bit for bit); K2 at the 30x12x30
+     channels-last) and its forward + backward time, its packing and
+     gather apart by kernel, one train-step lift packing each map once,
+     and its backward kernel as in phase 8 (two calls bit for bit, the
+     stage split); K2 at the 30x12x30
      bottleneck, (1, 4, 10,800, 1,350) @ (1, 1,350, 256), bf16 on the
      wgmma kernel and fp32 on the 3xTF32 one (mega padded to 1,352) beside
      the SIMT kernel and torch.sigmoid + torch.matmul; K4 at the b3
@@ -157,9 +171,12 @@ Phases, one line each:
      RGB images, uint16 depth PNGs, 60x36x60 labels, a rig that puts ~70%
      of the voxels in the real and the virtual view): the fused lift of
      the real and the virtual view into 129,600 voxels at b4's C = 100
-     (bf16 rows of 200 bytes: one element a lane) and b7's C = 200, bf16
-     and fp32, NCHW and channels-last, on the tree's projection and on
-     edge-case points, and its backward kernel as in phase 8; K2 at the
+     (maps packed to 104-channel rows of 208 bytes, thirteen 16-byte
+     chunks: NCHW maps, and channels-last ones, whose 200-byte rows are
+     no 16-byte multiple; one pack per map) and b7's C =
+     200, bf16 and fp32, NCHW and channels-last, on the tree's projection
+     and on edge-case points, its packing and gather apart, and its
+     backward kernel as in phase 8; K2 at the
      15x9x15 bottleneck, (1, 4, 2,025, 196) @
      (1, 196, 800) and b7's 1,600 channels, bf16 on the wgmma kernel with
      the logits and mega padded (neither stride is a 16-byte multiple),
@@ -401,11 +418,14 @@ def phase_selftest(dev) -> dict:
 
 
 def phase_k1(dev) -> dict:
-    """3. The standalone K1 vs its plain version at the lift's shape."""
+    """3. The standalone K1 vs its plain version at the lift's shape, then
+    its backward kernel vs the plain closed form on the same inputs."""
     import torch
 
     from occdepth_tpu_torch.ops.stereo_fuse import (
         stereo_cosine_fuse,
+        stereo_cosine_fuse_backward,
+        stereo_cosine_fuse_backward_reference,
         stereo_cosine_fuse_reference,
     )
 
@@ -425,8 +445,32 @@ def phase_k1(dev) -> dict:
         ms=f"{ms:.5f}", plain_ms=f"{plain:.5f}", bound_ms=f"{b_ms:.5f}",
         bound_by=kind, bound_share=f"{b_ms / ms:.3f}")
     check(err <= K1_TOL, f"K1 error {err} > {K1_TOL}")
+    # the backward: df0, df1, dm0, dm1 from f0, f1, the masks and grad_out
+    cot = torch.randn(BATCH, N, C, device=dev, generator=g)
+    got = stereo_cosine_fuse_backward(*args, cot)
+    ref = stereo_cosine_fuse_backward_reference(*args, cot)
+    torch.cuda.synchronize()
+    bwd_err = max((a - b).abs().max().item() / max(1.0, b.abs().max().item())
+                  for a, b in zip(got, ref))
+    bwd = {"max_abs_err": max((a - b).abs().max().item()
+                              for a, b in zip(got, ref)),
+           "max_rel_err": bwd_err,
+           "ms": device_ms(lambda: stereo_cosine_fuse_backward(*args, cot)),
+           "plain_ms": device_ms(
+               lambda: stereo_cosine_fuse_backward_reference(*args, cot))}
+    # f0, f1, grad_out and the masks read, df0, df1, dm0, dm1 written
+    bwd["bound_ms"], bwd["bound_by"] = bound_ms(
+        5 * BATCH * N * C * 4 + 4 * BATCH * N * 4, 16 * BATCH * N * C,
+        FP32_FLOPS)
+    log("k1_backward", shape=f"({BATCH},{N},{C})x2", max_rel_err=bwd_err,
+        rtol=K1_GRAD_TOL, ms=f"{bwd['ms']:.5f}",
+        plain_ms=f"{bwd['plain_ms']:.5f}", bound_ms=f"{bwd['bound_ms']:.5f}",
+        bound_by=bwd["bound_by"],
+        bound_share=f"{bwd['bound_ms'] / bwd['ms']:.3f}")
+    check(bwd_err <= K1_GRAD_TOL,
+          f"K1 backward error {bwd_err} x max(1, max|ref|) > {K1_GRAD_TOL}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": kind}
+            "bound_ms": b_ms, "bound_by": kind, "backward": bwd}
 
 
 def lift_maps(dev, dtype, layout, B, C, hw, seed):
@@ -499,6 +543,114 @@ def lift_backward_bytes(maps, pix, fov, scales, grad_out) -> int:
     return n + sum(m.numel() * m.element_size() for m in maps)
 
 
+# rig -> `profile_lift.py`'s result at that rig (phase 2c)
+LIFT_PROFILE: dict = {}
+
+
+def phase_lift_profile() -> dict:
+    """2c. `scripts/profile_lift.py` at its five rigs, in a process of its
+    own: in this process torch.profiler's CUDA trace lost kernel records
+    once the train and eval phases had run (seen on the card), in a fresh
+    one never.  Its split by kernel fills LIFT_PROFILE."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, "-m", "occdepth_tpu_torch.scripts.profile_lift"],
+        cwd=root, capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, "profile_lift failed (rc "
+          f"{proc.returncode}): {proc.stderr[-3000:]}")
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    for name, r in result["rigs"].items():
+        log("lift_profile", rig=name, shape=repr(r["shape"]),
+            **{k: f"{r[k]:.5f}" for k in ("fwd_ms", "fwd_cl_ms", "bwd_ms",
+                                          "train_ms", "train_peak_mib")})
+    LIFT_PROFILE.update(result["rigs"])
+    return result
+
+
+def stage_split(rig: str, direction: str) -> dict:
+    """Device ms per call of each kernel that the lift's forward ("fwd",
+    on NCHW maps: the packs and the lift) or its backward ("bwd", on the
+    forward's packed copies) launches at `profile_lift.RIGS` rig `rig`,
+    by kernel name (phase 2c)."""
+    return {k: round(v["ms"], 5)
+            for k, v in LIFT_PROFILE[rig][f"{direction}_stages"].items()}
+
+
+def pack_plain(x):
+    """The plain version of K3's packing kernel: (B, C, H, W) -> (B, H, W,
+    Cp) by PyTorch copies (what the CPU path runs)."""
+    from occdepth_tpu_torch.ops.conv2d_shift import padded_channels
+
+    B, C, H, W = x.shape
+    out = x.new_empty((B, H, W, padded_channels(C)))
+    out[..., C:].zero_()
+    out[..., :C].copy_(x.permute(0, 2, 3, 1))
+    return out
+
+
+def pack_at_maps(maps) -> dict:
+    """K3's packing kernel on the lift's NCHW maps (each (B * 2, C, h, w)),
+    summed over the maps: bit-equal to its plain version, device times of
+    the kernel, the plain version and PyTorch's channels_last copy, and
+    its bytes bound (the map read once, the padded copy written once)."""
+    import torch
+
+    from occdepth_tpu_torch.ops.conv2d_shift import to_padded_channels_last
+
+    xs = [m.reshape(-1, *m.shape[2:]) for m in maps]
+    res = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+           "library_ms": 0.0, "bytes": 0}
+    for x in xs:
+        got, want = to_padded_channels_last(x), pack_plain(x)
+        torch.cuda.synchronize()
+        res["max_abs_err"] = max(res["max_abs_err"], (
+            got.float() - want.float()).abs().max().item())
+        check(torch.equal(got, want), f"packing kernel differs at "
+                                      f"{tuple(x.shape)}")
+        res["ms"] += device_ms(lambda: to_padded_channels_last(x))
+        res["plain_ms"] += device_ms(lambda: pack_plain(x))
+        res["library_ms"] += device_ms(
+            lambda: x.contiguous(memory_format=torch.channels_last))
+        res["bytes"] += (x.numel() + got.numel()) * x.element_size()
+    res["bound_ms"], res["bound_by"] = bound_ms(res["bytes"], 0, FP32_FLOPS)
+    log("pack", maps=[tuple(x.shape) for x in xs],
+        **{k: (f"{v:.5f}" if isinstance(v, float) else v)
+           for k, v in res.items()},
+        bound_share=f"{res['bound_ms'] / res['ms']:.3f}")
+    return res
+
+
+def lift_train_checks(dev, maps, pix, fov, tag) -> dict:
+    """One train-step lift (forward and backward through autograd) on the
+    NCHW maps: one packing launch per map (the backward reads the
+    forward's copies), one forward and one backward launch."""
+    import torch
+
+    from occdepth_tpu_torch.ops.conv2d_shift import to_padded_channels_last
+    from occdepth_tpu_torch.ops.flosp_gather import (
+        flosp_stereo_lift,
+        flosp_stereo_lift_backward,
+    )
+
+    leaves = [m.detach().requires_grad_() for m in maps]
+    before = (to_padded_channels_last.launches, flosp_stereo_lift.launches,
+              flosp_stereo_lift_backward.launches)
+    out = flosp_stereo_lift(leaves, pix, fov, LIFT_SCALES)
+    torch.autograd.grad(out, leaves, torch.ones_like(out))
+    torch.cuda.synchronize()
+    res = {"packs_per_step": to_padded_channels_last.launches - before[0],
+           "forward_launches": flosp_stereo_lift.launches - before[1],
+           "backward_launches":
+               flosp_stereo_lift_backward.launches - before[2]}
+    log(f"{tag}_train_lift", maps=len(maps), **res)
+    check(res["packs_per_step"] == len(maps)
+          and res["forward_launches"] == 1 and res["backward_launches"] == 1,
+          f"{tag}: a train-step lift packed {res['packs_per_step']} maps "
+          f"(one each expected), {res['forward_launches']} forward and "
+          f"{res['backward_launches']} backward launches")
+    return res
+
+
 class PlainLiftCalls:
     """While active, counts the calls of the plain lift, forward or
     backward, on CUDA tensors (the module attributes the registered
@@ -527,7 +679,7 @@ class PlainLiftCalls:
 
 
 def lift_backward_at_shape(dev, rig, hw, C, cases, tag, edge_seed,
-                           map_seed) -> dict:
+                           map_seed, rig_name) -> dict:
     """The lift's backward kernel at batch 1 on the rig's N voxels from the
     four scales of an hw image at C channels (the train step's shape), vs
     its plain version in each (dtype, layout, points) case of `cases`
@@ -535,8 +687,9 @@ def lift_backward_at_shape(dev, rig, hw, C, cases, tag, edge_seed,
     P=1, "p4": at P=4 on N / 8 voxels), within LIFT_GRAD_RTOL; then on the
     rig with bf16 NCHW maps (the train path's): two calls bit for bit, the
     device times of the kernel and the plain version, the bytes bound and
-    its share.  The kernel must not read under its bound and must beat
-    the plain version."""
+    its share, and its split by kernel at `profile_lift.RIGS` rig
+    `rig_name` (phase 2c).  The kernel must not read under its bound and
+    must beat the plain version."""
     import torch
 
     from occdepth_tpu_torch.ops.flosp_gather import (
@@ -588,6 +741,10 @@ def lift_backward_at_shape(dev, rig, hw, C, cases, tag, edge_seed,
     res["bound_ms"], res["bound_by"] = bound_ms(
         lift_backward_bytes(maps, pix, fov, LIFT_SCALES, cot), 0,
         FP32_FLOPS)
+    # the backward on the packed maps the train step hands it, by kernel
+    res["stages"] = stage_split(rig_name, "bwd")
+    log(f"{tag}_bwd_stages", rig=rig_name,
+        **{k.replace(" ", "_"): v for k, v in res["stages"].items()})
     log(f"{tag}_bwd", shape=f"(1,{N},P1,{C}) bf16 NCHW, rig projection",
         ms=f"{res['ms']:.5f}", plain_ms=f"{res['plain_ms']:.5f}",
         bound_ms=f"{res['bound_ms']:.5f}", bound_by=res["bound_by"],
@@ -659,6 +816,11 @@ def phase_lift(dev, calib, hw) -> dict:
     res["yardstick_ms"] = device_ms(
         lambda: per_scale_lift(maps, pix, fov, LIFT_SCALES))
     res["ms"] = res["nchw"]
+    res["stages"] = stage_split("kitti", "fwd")
+    log("lift_stages", rig="kitti",
+        **{k.replace(" ", "_"): v for k, v in res["stages"].items()})
+    res["train_lift"] = lift_train_checks(dev, maps, pix, fov, "lift")
+    res["pack"] = pack_at_maps(maps)
     n_bytes = lift_bytes(maps, pix, fov, LIFT_SCALES)
     res["bound_ms"], res["bound_by"] = bound_ms(n_bytes, 0, FP32_FLOPS)
     log("lift", shape=f"({BATCH},{N},P1,{C}) bf16 rig projection",
@@ -940,7 +1102,7 @@ def phase_autograd(dev, calib, hw) -> dict:
         [(dt, lay, pts) for pts in ("rig", "edges", "p4")
          for dt in (torch.bfloat16, torch.float32)
          for lay in ("nchw", "channels_last")],
-        "kitti_lift", edge_seed=81, map_seed=82)
+        "kitti_lift", edge_seed=81, map_seed=82, rig_name="kitti")
 
     # K2: (B=1, R, M, N) logits and (B=1, C, M) mega read transposed, the
     # four relations in one call, as the CRP passes them
@@ -1047,7 +1209,10 @@ def phase_tiny_train(dev) -> dict:
 
 def kernel_counters() -> dict:
     """name -> the wrapper whose `.launches` counts that kernel."""
-    from occdepth_tpu_torch.ops.conv2d_shift import conv3x3
+    from occdepth_tpu_torch.ops.conv2d_shift import (
+        conv3x3,
+        to_padded_channels_last,
+    )
     from occdepth_tpu_torch.ops.crp_matmul import crp_relation_matmul
     from occdepth_tpu_torch.ops.dw_conv import dw_filter_grad
     from occdepth_tpu_torch.ops.flosp_gather import (
@@ -1056,11 +1221,16 @@ def kernel_counters() -> dict:
     )
     from occdepth_tpu_torch.ops.matmul_probe import matmul_probe
     from occdepth_tpu_torch.ops.row_gather import row_gather
-    from occdepth_tpu_torch.ops.stereo_fuse import stereo_cosine_fuse
+    from occdepth_tpu_torch.ops.stereo_fuse import (
+        stereo_cosine_fuse,
+        stereo_cosine_fuse_backward,
+    )
 
     return {"stereo_cosine_fuse": stereo_cosine_fuse,
+            "stereo_cosine_fuse_backward": stereo_cosine_fuse_backward,
             "flosp_stereo_lift": flosp_stereo_lift,
             "flosp_stereo_lift_backward": flosp_stereo_lift_backward,
+            "pack_nhwc": to_padded_channels_last,
             "crp_relation_matmul": crp_relation_matmul,
             "conv3x3": conv3x3, "dw_filter_grad": dw_filter_grad,
             "row_gather": row_gather, "matmul_probe": matmul_probe}
@@ -1188,6 +1358,11 @@ def fit_and_check(cfg, train_ds, val_ds, logdir, expected, tag,
     check(launches["flosp_stereo_lift_backward"] == steps * lift_k2,
           f"{tag}: the lift's backward launches "
           f"{launches['flosp_stereo_lift_backward']} for {steps} steps")
+    # at most one pack of each map a forward: the backward packs none
+    n_maps = len(cfg.project_res) if lift_k2 else 0
+    check(launches["pack_nhwc"] <= forwards * n_maps,
+          f"{tag}: {launches['pack_nhwc']} packing launches for {forwards} "
+          f"lift forwards of {n_maps} maps")
     check(plain.count == 0,
           f"{tag}: the plain lift ran {plain.count} times on the card")
     check(launches["stereo_cosine_fuse"] == 0,
@@ -1800,14 +1975,17 @@ def k2_simt(p_logit, mega):
     return out
 
 
-def lift_at_shape(dev, rig, hw, C, cases, tag, edge_seed, map_seed) -> dict:
+def lift_at_shape(dev, rig, hw, C, cases, tag, edge_seed, map_seed,
+                  rig_name) -> dict:
     """The fused lift at batch 1 into the rig's N voxels from the four
     scales of an hw image at C channels, vs its plain version in each
     (dtype, layout, points) case of `cases` (points "rig": the tree's
     projection, "edges": `lift_points`' edge cases); then its device
     times on the rig with bf16 NCHW maps (the kernel, the plain version,
-    the per-scale path), the bytes bound, and the train step's forward +
-    backward (CUDA events); then its backward kernel in the same cases
+    the per-scale path), the bytes bound, the forward's packing and
+    gather apart by kernel (torch.profiler), the train step's lift (one
+    packing launch per map, one forward launch) and its forward + backward
+    (CUDA events); then its backward kernel in the same cases
     (`lift_backward_at_shape`)."""
     import torch
 
@@ -1847,7 +2025,13 @@ def lift_at_shape(dev, rig, hw, C, cases, tag, edge_seed, map_seed) -> dict:
         lambda: per_scale_lift(maps, pix, fov, LIFT_SCALES))
     lift["bound_ms"], lift["bound_by"] = bound_ms(
         lift_bytes(maps, pix, fov, LIFT_SCALES), 0, FP32_FLOPS)
-    # the train step's lift: forward, then its backward kernel
+    # the forward's packing and gather apart, by kernel
+    lift["stages"] = stage_split(rig_name, "fwd")
+    log(f"{tag}_stages", rig=rig_name,
+        **{k.replace(" ", "_"): v for k, v in lift["stages"].items()})
+    # the train step's lift: forward, then its backward kernel; NCHW maps
+    # packed once (NYU's C = 100 too)
+    lift["train_lift"] = lift_train_checks(dev, maps, pix, fov, tag)
     leaves = [m.detach().requires_grad_() for m in maps]
     cot = torch.randn(1, N, C, device=dev)
     lift["fwd_ms_events"] = cuda_ms(
@@ -1864,7 +2048,7 @@ def lift_at_shape(dev, rig, hw, C, cases, tag, edge_seed, map_seed) -> dict:
     check(lift["fov_share"] > 0.5, f"{tag}: the tree's rig sees too little")
     del maps, leaves
     lift["backward"] = lift_backward_at_shape(
-        dev, rig, hw, C, cases, tag, edge_seed, map_seed + 10)
+        dev, rig, hw, C, cases, tag, edge_seed, map_seed + 10, rig_name)
     return lift
 
 
@@ -2005,7 +2189,7 @@ def phase_ta_kernels(dev, sample) -> dict:
                               (torch.float32, "nchw", "rig"),
                               (torch.bfloat16, "channels_last", "edges"),
                               (torch.float32, "nchw", "edges")),
-        "ta_lift", edge_seed=16, map_seed=20)}
+        "ta_lift", edge_seed=16, map_seed=20, rig_name="tartanair")}
     # K2 at M = 1,350: bf16 on wgmma (mega padded), fp32 on SIMT
     res["k2"] = k2_at_shape(dev, N // 64, 1350, 256,
                             {"bfloat16": ("mega",), "float32": ("mega",)},
@@ -2229,8 +2413,8 @@ def phase_nyu_kernels(dev, sample) -> dict:
     """20. K1+, K2, K4 and K3 at NYU's shapes vs their plain versions: the
     fused lift of the real and the virtual view into 129,600 voxels
     (batch 1, the full-size tree's projection and edge-case points) from a
-    480x640 image's four scales at b4's C = 100 (bf16 rows of 200 bytes:
-    the kernel's one-element-a-lane form) and b7's C = 200, in bf16 and
+    480x640 image's four scales at b4's C = 100 (bf16 rows of 200 bytes,
+    packed to 208: thirteen 16-byte chunks) and b7's C = 200, in bf16 and
     fp32, NCHW and channels-last; K2 at the 15x9x15 bottleneck, (1, 4,
     2,025, 196) @ (1, 196, 800) and b7's C = 1,600, bf16 on wgmma (logits
     and mega padded) beside the SIMT kernel and sigmoid + matmul, fp32 on
@@ -2248,10 +2432,11 @@ def phase_nyu_kernels(dev, sample) -> dict:
                   for layout in ("nchw", "channels_last")
                   for dt in (torch.bfloat16, torch.float32))
     res = {"lift": lift_at_shape(dev, rig, NYU_HW, 100, cases, "nyu_lift",
-                                 edge_seed=20, map_seed=40),
+                                 edge_seed=20, map_seed=40,
+                                 rig_name="nyu_b4"),
            "lift_b7": lift_at_shape(dev, rig, NYU_HW, 200, cases,
                                     "nyu_lift_b7", edge_seed=21,
-                                    map_seed=60)}
+                                    map_seed=60, rig_name="nyu_b7")}
     n_crp, m_crp = 15 * 9 * 15, 7 * 4 * 7
     pads = {"bfloat16": ("logits", "mega"), "float32": ("logits",)}
     res["k2"] = k2_at_shape(dev, n_crp, m_crp, 800, pads, "nyu_k2", seed=22)
@@ -2519,7 +2704,8 @@ def phase_kitti_configs(dev, smi: str) -> dict:
                   for dt in (torch.bfloat16, torch.float32))
     res["lift_highcap"] = lift_at_shape(
         dev, rig, tuple(hcfg.img_shape), HIGHCAP_C, cases,
-        "kitti_lift_highcap", edge_seed=28, map_seed=80)
+        "kitti_lift_highcap", edge_seed=28, map_seed=80,
+        rig_name="highcap")
     res["k2_highcap"] = k2_at_shape(dev, 4096, 512, 8 * HIGHCAP_C,
                                     {"bfloat16": (), "float32": ()},
                                     "kitti_k2_highcap", seed=29)
@@ -3497,6 +3683,7 @@ def main() -> None:
     log("build_native", seconds=f"{native_s:.2f}", cached=native_s == 0.0,
         library=native_path)
     phase_selftest(dev)
+    phase_lift_profile()
 
     # ---- 3, 3b, 4. K1, the fused lift and K2 at the main path's shapes ----
     cfg, pipe, calib = serving_setup(BATCH)
@@ -3544,6 +3731,7 @@ def main() -> None:
         fps=f"{N_FRAMES / wall_s:.3f}",
         peak_mem_gib=f"{peak / 2**30:.3f}",
         lift_launches=launches["flosp_stereo_lift"],
+        packs=launches["pack_nhwc"],
         k2_launches=launches["crp_relation_matmul"],
         k1_launches=launches["stereo_cosine_fuse"])
     check(len(preds) == N_FRAMES, f"{len(preds)} outputs for {N_FRAMES}")
@@ -3659,6 +3847,29 @@ def main() -> None:
          "library_ms": None,
          "timed": "standalone, 2 x 262,144 rows x 32 fp32, CUDA-graph "
                   "replays; the model's paths run it fused (flosp_stereo_lift)"},
+        {"name": "stereo_cosine_fuse_backward", "route": "cuda",
+         "source": "occdepth_tpu_torch/csrc/stereo_fuse.cu",
+         "replaces": "no TPU kernel: the JAX package differentiates the jnp "
+                     "formula (occdepth_tpu/ops/pallas_kernels.py:92 "
+                     "stereo_cosine_fuse_reference)",
+         **by_path("stereo_cosine_fuse_backward"),
+         **{k: k1["backward"][k] for k in ("max_abs_err", "max_rel_err", "ms",
+                                           "plain_ms", "bound_ms",
+                                           "bound_by")},
+         "library_ms": None,
+         "timed": "standalone, 2 x 262,144 rows x 32 fp32 (df0, df1, dm0, "
+                  "dm1), CUDA-graph replays; plain: the closed form"},
+        {"name": "pack_nhwc", "route": "cuda",
+         "source": "occdepth_tpu_torch/csrc/conv3x3.cu",
+         "replaces": "no TPU kernel: the layout copy XLA makes of the "
+                     "lift's and K3's NCHW inputs",
+         **by_path("pack_nhwc"),
+         **{k: lift["pack"][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "bound_by",
+                                         "library_ms")},
+         "timed": "the serving lift's four bf16 NCHW maps (batch 2 x 2 "
+                  "views, 32 channels, 1_1..1_8 of 370x1220), summed; "
+                  "library: Tensor.contiguous(memory_format=channels_last)"},
         {"name": "flosp_stereo_lift", "route": "cuda",
          "source": "occdepth_tpu_torch/csrc/stereo_fuse.cu",
          "replaces": "occdepth_tpu/ops/pallas_kernels.py:118, "
@@ -3669,14 +3880,17 @@ def main() -> None:
                                  "bound_by", "yardstick_ms")},
          "ms_channels_last": lift["channels_last"],
          "library_ms": None,
+         "stages": lift["stages"],
          "tartanair": dict(at_ta(ta["lift"]), **{
              k: ta["lift"][k] for k in ("yardstick_ms", "fwd_ms_events",
-                                        "fwd_bwd_ms_events", "fov_share")},
+                                        "fwd_bwd_ms_events", "fov_share",
+                                        "stages")},
              shape="batch 1, 691,200 voxels, C=32, bf16 NCHW maps of a "
                    "480x640 image, the tree's rig"),
          "nyu": {name: dict(at_ta(r), **{
              k: r[k] for k in ("yardstick_ms", "fwd_ms_events",
-                               "fwd_bwd_ms_events", "fov_share")},
+                               "fwd_bwd_ms_events", "fov_share", "stages",
+                               "train_lift")},
              shape=f"batch 1, 129,600 voxels, C={c}, bf16 NCHW maps of a "
                    "480x640 image and its virtual view, the tree's rig")
              for name, r, c in (("b4", nyu["lift"], 100),
@@ -3684,7 +3898,7 @@ def main() -> None:
          "kitti_highcap": dict(at_ta(configs["lift_highcap"]), **{
              k: configs["lift_highcap"][k] for k in (
                  "yardstick_ms", "fwd_ms_events", "fwd_bwd_ms_events",
-                 "fov_share")},
+                 "fov_share", "stages")},
              shape="batch 1, 262,144 voxels, C=64, bf16 NCHW maps of a "
                    "370x1220 image, the highcap configs' rig"),
          "timed": "serving shape: batch 2, 262,144 voxels, C=32, bf16 NCHW "
@@ -3698,18 +3912,18 @@ def main() -> None:
          **by_path("flosp_stereo_lift_backward"),
          **{k: lift_bwd[k] for k in ("max_abs_err", "max_rel_err", "ms",
                                      "plain_ms", "bound_ms", "bound_by",
-                                     "bitwise")},
+                                     "bitwise", "stages")},
          "library_ms": None,
          "tartanair": at_ta(ta["lift"]["backward"], (
              "max_rel_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "bitwise")),
+             "bitwise", "stages")),
          "nyu": {name: at_ta(r["backward"], (
              "max_rel_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "bitwise")) for name, r in (("b4", nyu["lift"]),
-                                         ("b7", nyu["lift_b7"]))},
+             "bitwise", "stages")) for name, r in (("b4", nyu["lift"]),
+                                                   ("b7", nyu["lift_b7"]))},
          "kitti_highcap": at_ta(configs["lift_highcap"]["backward"], (
              "max_rel_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "bitwise")),
+             "bitwise", "stages")),
          "timed": "train shape: batch 1, 262,144 voxels, C=32, bf16 NCHW "
                   "maps of a 370x1220 image, the rig's projection, P=1; "
                   "max_rel_err: x max(1, max|ref|) per map"},

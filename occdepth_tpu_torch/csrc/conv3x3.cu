@@ -500,18 +500,123 @@ conv3x3_tf32_kernel(const __grid_constant__ CUtensorMap tm_x,
 }
 
 // ---- packing: (B, C, H, W) at any strides -> (B, H, W, Cp) ----
-// A block moves 64 pixels x 64 channels through shared memory: reads run
-// along the pixels (NCHW) or the channels (channels-last), writes along the
-// channels in 16-byte vectors; channels C .. Cp - 1 are written as zeros.  T is the
-// element's bits (uint16_t for bf16, uint32_t for fp32): a pure copy.
-constexpr int PACK_P = 64, PACK_C = 64, PACK_THREADS = 256;
+// It is bound by bytes: C * H * W elements read once, Cp * H * W written
+// once.  Channels C .. Cp - 1 are written as zeros.  T is the element's
+// bits (uint16_t for bf16, uint32_t for fp32): a pure copy.
+//
+// `pack_planes_kernel` takes the usual input, whose (b, c) planes are
+// contiguous (NCHW and its channel or batch slices): a thread moves one
+// VEC x VEC block (VEC = 16 / sizeof(T): 8 bf16 or 4 fp32), reading VEC
+// channels' VEC pixels as 16-byte vectors (narrower where the planes'
+// offsets are not 16-byte aligned: a 185 x 610 bf16 plane is 225,700
+// bytes), transposing them in registers (byte permutes for bf16), and
+// writing VEC pixels' VEC channels as 16-byte vectors.  Neighbouring
+// threads take neighbouring channel vectors of one pixel block, so a
+// warp's reads are runs along the pixels of a few channels and its writes
+// whole padded pixel rows.  No shared memory: the transpose of a block
+// never leaves the thread.
+// `pack_nhwc_kernel` moves a tile of PACK_ELEMS elements through shared
+// memory, 64 pixels x 64 channels or, for rows of at most 32 channels
+// (KITTI's C = 32), 128 pixels x 32 (so that no thread idles on pad
+// channels and a block keeps twice the bytes in flight): reads along the
+// pixels (NCHW) or the channels (channels-last), writes along the
+// channels in 16-byte vectors.  It takes any strides, and every row width
+// whose padded channels are 32 or a multiple of 64; the register kernel
+// the other rows of contiguous planes (NYU's C = 100 and 200, whose last
+// 64-channel tile would be partly idle).
+constexpr int PACK_ELEMS = 4096, PACK_THREADS = 256;
 
-template <typename T>
+union Vec16 {
+  uint4 v;
+  uint32_t w[4];
+  uint16_t h[8];
+};
+
+// VEC elements at p, read `VR` bytes at a time (p aligned to VR)
+template <typename T, int VR>
+__device__ __forceinline__ uint4 load_vec(const T* p) {
+  Vec16 r;
+  if constexpr (VR == 16) {
+    r.v = __ldg(reinterpret_cast<const uint4*>(p));
+  } else if constexpr (VR == 8) {
+    const uint2 a = __ldg(reinterpret_cast<const uint2*>(p));
+    const uint2 b = __ldg(reinterpret_cast<const uint2*>(p) + 1);
+    r.w[0] = a.x; r.w[1] = a.y; r.w[2] = b.x; r.w[3] = b.y;
+  } else if constexpr (VR == 4) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      r.w[k] = __ldg(reinterpret_cast<const uint32_t*>(p) + k);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      r.h[k] = __ldg(reinterpret_cast<const unsigned short*>(p) + k);
+  }
+  return r.v;
+}
+
+// rows a[k] (channel k of the block, its VEC pixels) -> o[k] (pixel k of
+// the block, its VEC channels)
+__device__ __forceinline__ void transpose_block(const Vec16 (&a)[4],
+                                                Vec16 (&o)[4]) {
+#pragma unroll
+  for (int p = 0; p < 4; ++p)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) o[p].w[j] = a[j].w[p];
+}
+
+__device__ __forceinline__ void transpose_block(const Vec16 (&a)[8],
+                                                Vec16 (&o)[8]) {
+  // word j of pixel p: channels 2j and 2j + 1, each the low or high half
+  // of word p / 2 of its row
+#pragma unroll
+  for (int p = 0; p < 8; ++p)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      o[p].w[j] = __byte_perm(a[2 * j].w[p / 2], a[2 * j + 1].w[p / 2],
+                              p % 2 ? 0x7632 : 0x5410);
+}
+
+template <typename T, int VR>
+__global__ void __launch_bounds__(PACK_THREADS)
+pack_planes_kernel(const T* __restrict__ x, T* __restrict__ out, int C,
+                   int Cp, unsigned HW, long long sb, long long sc,
+                   unsigned items, unsigned pvecs, unsigned cvecs) {
+  constexpr int VEC = 16 / sizeof(T);
+  for (unsigned i = blockIdx.x * PACK_THREADS + threadIdx.x; i < items;
+       i += gridDim.x * PACK_THREADS) {
+    const unsigned cv = i % cvecs, r = i / cvecs;
+    const unsigned pv = r % pvecs, b = r / pvecs;
+    const unsigned p0 = pv * VEC;
+    const bool full = p0 + VEC <= HW;
+    Vec16 a[VEC], o[VEC];
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      const int c = cv * VEC + k;
+      a[k].v = make_uint4(0u, 0u, 0u, 0u);
+      if (c >= C) continue;
+      const T* src = x + b * sb + c * sc + p0;
+      if (full) {
+        a[k].v = load_vec<T, VR>(src);
+      } else {
+        T* e = reinterpret_cast<T*>(&a[k]);
+        for (unsigned q = 0; p0 + q < HW; ++q) e[q] = src[q];
+      }
+    }
+    transpose_block(a, o);
+    T* dst = out + ((long long)b * HW + p0) * Cp + cv * VEC;
+#pragma unroll
+    for (int k = 0; k < VEC; ++k)
+      if (p0 + k < HW)
+        *reinterpret_cast<uint4*>(dst + (long long)k * Cp) = o[k].v;
+  }
+}
+
+template <typename T, int PACK_C>
 __global__ void __launch_bounds__(PACK_THREADS)
 pack_nhwc_kernel(const T* __restrict__ x, T* __restrict__ out, int C, int Cp,
                  int H, int W, long long sb, long long sc, long long sh,
                  long long sw) {
-  constexpr int VEC = 16 / sizeof(T);
+  constexpr int VEC = 16 / sizeof(T), PACK_P = PACK_ELEMS / PACK_C;
   __shared__ T tile[PACK_C][PACK_P + 1];
   const int HW = H * W;  // < 2^31 (checked by the launcher)
   const int p0 = blockIdx.x * PACK_P;
@@ -701,22 +806,61 @@ extern "C" int occ_pack_nhwc(const void* x, void* out, int dtype, long long B,
                              cudaStream_t stream) {
   if (B == 0 || H == 0 || W == 0 || Cp == 0) return 0;
   if (Cp % 8 != 0 || Cp < C) return -2;
-  const long long p_tiles = (H * W + PACK_P - 1) / PACK_P;
-  const long long c_tiles = (Cp + PACK_C - 1) / PACK_C;
+  if (dtype != 0 && dtype != 1) return -1;
+  const int es = dtype == 0 ? 4 : 2, vec = 16 / es;
+  // contiguous (b, c) planes whose rows the shared-memory tiles would
+  // leave partly idle: the register kernel, reading as wide as the planes'
+  // offsets allow
+  const long long pvecs = (H * W + vec - 1) / vec, cvecs = Cp / vec;
+  if (Cp > 32 && Cp % 64 != 0 && sw == 1 && (H == 1 || sh == W) &&
+      H * W <= 0x7fffffffLL && B * pvecs * cvecs <= 0x7fffffffLL) {
+    int vr = 16;
+    auto fits = [&](long long bytes) {
+      return bytes % vr == 0;
+    };
+    while (vr > es && !(reinterpret_cast<uintptr_t>(x) % vr == 0 &&
+                        (B == 1 || fits(sb * es)) &&
+                        (C == 1 || fits(sc * es))))
+      vr /= 2;
+    const long long items = B * pvecs * cvecs;
+    const long long blocks = (items + PACK_THREADS - 1) / PACK_THREADS;
+    const unsigned grid = (unsigned)(blocks < 132LL * 32 ? blocks : 132LL * 32);
+#define OCC_PACK(T_, VR_)                                                    \
+  pack_planes_kernel<T_, VR_><<<grid, PACK_THREADS, 0, stream>>>(            \
+      static_cast<const T_*>(x), static_cast<T_*>(out), (int)C, (int)Cp,     \
+      (unsigned)(H * W), sb, sc, (unsigned)items, (unsigned)pvecs,           \
+      (unsigned)cvecs)
+    if (dtype == 0) {
+      if (vr == 16) OCC_PACK(uint32_t, 16);
+      else if (vr == 8) OCC_PACK(uint32_t, 8);
+      else OCC_PACK(uint32_t, 4);
+    } else {
+      if (vr == 16) OCC_PACK(uint16_t, 16);
+      else if (vr == 8) OCC_PACK(uint16_t, 8);
+      else if (vr == 4) OCC_PACK(uint16_t, 4);
+      else OCC_PACK(uint16_t, 2);
+    }
+#undef OCC_PACK
+    return (int)cudaGetLastError();
+  }
+  const int pack_c = Cp <= 32 ? 32 : 64, pack_p = PACK_ELEMS / pack_c;
+  const long long p_tiles = (H * W + pack_p - 1) / pack_p;
+  const long long c_tiles = (Cp + pack_c - 1) / pack_c;
   if (H * W > 0x7fffffffLL || c_tiles > 65535 || B > 65535 ||
       Cp > 0x7fffffffLL || H > 0x7fffffffLL || W > 0x7fffffffLL)
     return -3;
   const dim3 grid((unsigned)p_tiles, (unsigned)c_tiles, (unsigned)B);
+#define OCC_TILE(T_, C_)                                                     \
+  pack_nhwc_kernel<T_, C_><<<grid, PACK_THREADS, 0, stream>>>(               \
+      static_cast<const T_*>(x), static_cast<T_*>(out), (int)C, (int)Cp,     \
+      (int)H, (int)W, sb, sc, sh, sw)
   if (dtype == 0) {
-    pack_nhwc_kernel<uint32_t><<<grid, PACK_THREADS, 0, stream>>>(
-        static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out), (int)C,
-        (int)Cp, (int)H, (int)W, sb, sc, sh, sw);
-  } else if (dtype == 1) {
-    pack_nhwc_kernel<uint16_t><<<grid, PACK_THREADS, 0, stream>>>(
-        static_cast<const uint16_t*>(x), static_cast<uint16_t*>(out), (int)C,
-        (int)Cp, (int)H, (int)W, sb, sc, sh, sw);
+    if (pack_c == 32) OCC_TILE(uint32_t, 32);
+    else OCC_TILE(uint32_t, 64);
   } else {
-    return -1;
+    if (pack_c == 32) OCC_TILE(uint16_t, 32);
+    else OCC_TILE(uint16_t, 64);
   }
+#undef OCC_TILE
   return (int)cudaGetLastError();
 }

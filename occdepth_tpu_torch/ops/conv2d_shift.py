@@ -82,8 +82,11 @@ def to_padded_channels_last(x: torch.Tensor) -> torch.Tensor:
     """(B, C, H, W) -> contiguous (B, H, W, Cp), channels past C zero, data
     16-byte aligned.  A channels-last x with C % 8 == 0 is returned as a
     view of the same memory.  Any other CUDA float32/bfloat16 x is copied
-    by the packing kernel (`occ_pack_nhwc` in `csrc/conv3x3.cu`: a tiled
-    transpose, 16-byte stores), a CPU x by PyTorch's copy."""
+    by the packing kernel (`occ_pack_nhwc` in `csrc/conv3x3.cu`:
+    contiguous planes move as 16-byte vectors through a register
+    transpose, any other strides through a shared-memory tile;
+    `to_padded_channels_last.launches` counts its launches), a CPU x by
+    PyTorch's copy."""
     B, C, H, W = x.shape
     Cp = padded_channels(C)
     xl = x.permute(0, 2, 3, 1)
@@ -102,7 +105,11 @@ def to_padded_channels_last(x: torch.Tensor) -> torch.Tensor:
             x.data_ptr(), out.data_ptr(), _DTYPE_CODE[x.dtype], B, C, Cp, H,
             W, *x.stride(), torch.cuda.current_stream(x.device).cuda_stream)
         cuda_lib.check(rc, "pack_nhwc")
+        to_padded_channels_last.launches += 1
     return out
+
+
+to_padded_channels_last.launches = 0
 
 
 def pack_conv3x3_weight(w: torch.Tensor) -> torch.Tensor:

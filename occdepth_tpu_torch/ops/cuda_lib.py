@@ -45,6 +45,10 @@ _SIGNATURES = {
         [_P, _P, _P, _P, _P, _I64, _I64, ctypes.c_int, _I64, _I64, _I64,
          _I64, ctypes.c_float, _P]
     ),
+    "occ_stereo_cosine_fuse_backward": (
+        [_P] * 9 + [_I64, _I64, ctypes.c_int, _I64, _I64, _I64, _I64,
+                    ctypes.c_float, _P]
+    ),
     "occ_flosp_stereo_lift": (
         [_P, _P, ctypes.c_int, _P, _P, _P, ctypes.c_int, _I64, _I64,
          ctypes.c_int, ctypes.c_int, ctypes.c_float, _P]

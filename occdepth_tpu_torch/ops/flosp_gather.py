@@ -19,6 +19,19 @@ gradient is the operator `occdepth::flosp_stereo_lift_backward`, the
 closed form of the maps' gradient: on CUDA the deterministic kernel
 `occ_flosp_stereo_lift_backward` (same source), on the CPU its plain
 version `flosp_stereo_lift_backward_reference`.
+
+The kernels read a map's rows as whole 16-byte chunks (`vector_layout`:
+unit channel stride, every stride a multiple of 16 bytes, the storage
+holding each row's channels rounded up to 16 bytes; `vector_reads` adds
+16-byte alignment).  The public `flosp_stereo_lift` packs every other map
+(NCHW, as the decoder under `decoder_conv_impl=xla` hands them over, or a
+channels-last map whose rows are no multiple of 16 bytes) to a padded
+channels-last copy before the operator, through the registered operator
+`occdepth::pack_map` (K3's packing kernel, `to_padded_channels_last`; its
+gradient passes through), so that the forward and the backward of a train
+step read the same copy: one pack per map per step.  The operators
+themselves pack any map that `vector_reads` rejects (in a traced or
+exported program, at run time).
 """
 from __future__ import annotations
 
@@ -28,13 +41,18 @@ from typing import Sequence
 import torch
 
 from occdepth_tpu_torch.ops import cuda_lib
-from occdepth_tpu_torch.ops.conv2d_shift import to_padded_channels_last
+from occdepth_tpu_torch.ops.conv2d_shift import (
+    padded_channels,
+    to_padded_channels_last,
+)
 from occdepth_tpu_torch.ops.stereo_fuse import (
     stereo_cosine_fuse,
+    stereo_cosine_fuse_backward_reference,
     stereo_cosine_fuse_reference,
 )
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
 MAX_SCALES = 8  # csrc/stereo_fuse.cu
 
 
@@ -130,15 +148,10 @@ def flosp_stereo_lift_backward_reference(
     map's shape and dtype and channels-last strides (`_grad_like`).
 
     Per batch item b, voxel n and scale s, with g = grad_out[b, n], f_v view
-    v's mean over its in-FOV points (0 when it has none), m_v = [count_v >
-    0], k_v = max(|f_v|, eps), c = (f0.f1) / (k0 k1) m0 m1 and w_v = c +
-    [m_v > m_other] (the forward is (w0 f0 + w1 f1) / 2):
-
-        df_v = w_v g / 2 + a m0 m1 (f_o / (k_v k_o)
-                                   - [|f_v| > eps] (f0.f1) f_v / (k_v^3 k_o)),
-        a = (g.f0 + g.f1) / 2,
-
-    and each in-FOV point of view v adds df_v / count_v to the map row it
+    v's mean over its in-FOV points (0 when it has none) and m_v = [count_v
+    > 0], df_v is K1's gradient at (f0, f1, m0, m1) (the closed form
+    `stereo_cosine_fuse_backward_reference`), and each in-FOV point of
+    view v adds df_v / count_v to the map row it
     names at scale s.  An in-FOV point whose flat index falls off the map
     adds nothing (its view's mean is NaN, as the kernel's forward reads it).
     Sums run in float32 in ascending (n, p) order per row (`index_add_` on
@@ -163,21 +176,8 @@ def flosp_stereo_lift_backward_reference(
         f = torch.where(count[..., None] > 0,
                         rows.sum(3) / count.clamp(min=1)[..., None], 0.0)
         m = (count > 0).float()
-        s01 = (f[:, 0] * f[:, 1]).sum(-1)
-        n = torch.linalg.vector_norm(f, dim=-1)  # (B, 2, N)
-        k = n.clamp(min=eps)
-        cos = s01 / (k[:, 0] * k[:, 1]) * (m[:, 0] * m[:, 1])
-        a = (0.5 * ((g * f[:, 0]).sum(-1) + (g * f[:, 1]).sum(-1))
-             * (m[:, 0] * m[:, 1]))
-        df = []
-        for v in (0, 1):
-            o = 1 - v
-            alpha = 0.5 * (cos + (m[:, v] - m[:, o] > 0).float())
-            gamma = a / (k[:, v] * k[:, o])
-            beta = torch.where(n[:, v] > eps,
-                               -a * s01 / (k[:, v] ** 3 * k[:, o]), 0.0)
-            df.append(alpha[..., None] * g + beta[..., None] * f[:, v]
-                      + gamma[..., None] * f[:, o])
+        df = stereo_cosine_fuse_backward_reference(
+            f[:, 0], f[:, 1], m[:, 0], m[:, 1], g, eps)[:2]
         per_point = torch.stack(df, 1) / count.clamp(min=1)[..., None]
         # every point adds to its row, the others to a spare row past the
         # maps' rows (no masked indexing: nothing waits for the device)
@@ -230,21 +230,60 @@ def flosp_stereo_lift(
 
     Args:
         maps: one (B, 2, C, h_s, w_s) map per scale of `project_res`, all
-            float32 or all bfloat16, any strides (a channels-last map is
-            read in place, any other is packed to channels-last first).
+            float32 or all bfloat16, any strides (a map with
+            `vector_layout` strides is read in place, any other is packed
+            to padded channels-last first, once: the gradient's backward
+            reads the same copy).
         projected_pix: (B, 2, N, P, 2) int32 pixel coordinates at project
             scale (divided by each scale with floor division).
         fov_mask: (B, 2, N, P) bool.
 
-    Returns (B, N, C) float32, contiguous.  On CUDA one kernel launch.
+    Returns (B, N, C) float32, contiguous.  On CUDA one kernel launch, after
+    one packing launch per map that the kernel cannot read in place.
     """
     maps = tuple(maps)
     if len(maps) != len(project_res):
         raise ValueError(f"flosp_stereo_lift: {len(maps)} maps for scales "
                          f"{tuple(project_res)}")
+    # a traced or exported program sees fake tensors, whose strides may
+    # differ from the run's (the decoder's maps under `pallas` trace as
+    # NCHW and run channels-last): there the operator packs at run time
+    if not torch.compiler.is_compiling():
+        maps = [torch.ops.occdepth.pack_map(m)
+                if m.dim() == 5 and not vector_layout(m) else m
+                for m in maps]
     return torch.ops.occdepth.flosp_stereo_lift(
-        list(maps), projected_pix, fov_mask, [int(s) for s in project_res],
+        maps, projected_pix, fov_mask, [int(s) for s in project_res],
         float(eps))
+
+
+def _padded_view(buf: torch.Tensor, C: int) -> torch.Tensor:
+    """A (B, V, h, w, Cp) buffer's first C channels as (B, V, C, h, w)."""
+    return buf[..., :C].permute(0, 1, 4, 2, 3)
+
+
+def _pack_impl(x2d: torch.Tensor) -> torch.Tensor:
+    """The map x2d (B, V, C, h, w) as a padded channels-last copy viewed as
+    (B, V, C, h, w) (`to_padded_channels_last`: on CUDA K3's packing
+    kernel)."""
+    B, V, C, h, w = x2d.shape
+    return _padded_view(to_padded_channels_last(
+        x2d.reshape(B * V, C, h, w)).view(B, V, h, w, -1), C)
+
+
+_pack_op = torch.library.custom_op("occdepth::pack_map", mutates_args=(),
+                                   device_types="cuda")(_pack_impl)
+_pack_op.register_kernel("cpu")(_pack_impl)
+
+
+@_pack_op.register_fake
+def _pack_fake(x2d):
+    B, V, C, h, w = x2d.shape
+    return _padded_view(x2d.new_empty((B, V, h, w, padded_channels(C))), C)
+
+
+# the packed map holds the same values: its gradient is the map's
+_pack_op.register_autograd(lambda ctx, grad: grad)
 
 
 _LIFT_SCHEMA = ("(Tensor[] maps, Tensor projected_pix, Tensor fov_mask, "
@@ -318,14 +357,54 @@ def channels_last_map(x2d: torch.Tensor) -> torch.Tensor:
     rows padded to a multiple of 8 channels) viewed as (B, V, C, h, w)."""
     if x2d.stride(2) == 1 or x2d.shape[2] == 1:
         return x2d
-    B, V, C, h, w = x2d.shape
-    packed = to_padded_channels_last(x2d.reshape(B * V, C, h, w))
-    return packed.view(B, V, h, w, -1)[..., :C].permute(0, 1, 4, 2, 3)
+    return _pack_impl(x2d)
+
+
+def vector_plan(C: int, itemsize: int, backward: bool = False):
+    """The vector kernel's plan for C channels of `itemsize`-byte elements
+    (csrc/stereo_fuse.cu `vector_plan`): (Q 16-byte chunks a row, `group`
+    lanes a row, chunks a lane), or None for a row of more than 128
+    chunks."""
+    Q = -(-C * itemsize // 16)
+    least = (2 if Q > 4 else 1) if backward else (4 if Q > 8 else 1)
+    group = 1
+    while group * least < Q and group < 32:
+        group *= 2
+    moves = -(-Q // group)
+    return None if moves > 4 else (Q, group, 1 if moves == 1 else
+                                   2 if moves == 2 else 4)
+
+
+def vector_layout(x2d: torch.Tensor) -> bool:
+    """Whether the strides of map x2d (B, V, C, h, w) let the lift's
+    kernels read its rows as whole 16-byte chunks: unit channel stride,
+    every stride of a dim longer than 1 a multiple of 16 bytes, and its
+    storage holding the last row's channels rounded up to 16 bytes (a
+    padded packed map reads its zero pad channels, which the kernel
+    drops).  A packed map always has such strides.  Reads no data
+    pointer."""
+    es = x2d.element_size()
+    vec = 16 // es
+    if x2d.stride(2) != 1 and x2d.shape[2] > 1:
+        return False
+    dims = [d for d in (0, 1, 3, 4) if x2d.shape[d] > 1]
+    if any(x2d.stride(d) * es % 16 for d in dims):
+        return False
+    span = (x2d.storage_offset() + -(-x2d.shape[2] // vec) * vec
+            + sum((x2d.shape[d] - 1) * x2d.stride(d) for d in dims))
+    return span * es <= x2d.untyped_storage().nbytes()
+
+
+def vector_reads(x2d: torch.Tensor) -> bool:
+    """Whether the lift's kernels can read map x2d in place: its strides
+    (`vector_layout`) and its data 16-byte aligned."""
+    return vector_layout(x2d) and x2d.data_ptr() % 16 == 0
 
 
 def _checked_inputs(name, maps, projected_pix, fov_mask, project_res):
-    """The kernels' inputs checked on CUDA: (channels-last maps, contiguous
-    pix and fov, per-scale geometry for the C entry points)."""
+    """The kernels' inputs checked on CUDA: (the maps, each that
+    `vector_reads` rejects packed; contiguous pix and fov; per-scale
+    geometry for the C entry points)."""
     dev = maps[0].device
     B, V, C = maps[0].shape[:3]
     N, P = projected_pix.shape[2], projected_pix.shape[3]
@@ -350,11 +429,15 @@ def _checked_inputs(name, maps, projected_pix, fov_mask, project_res):
         raise ValueError(f"{name}: projected_pix "
                          f"{tuple(projected_pix.shape)}, fov_mask "
                          f"{tuple(fov_mask.shape)}")
-    maps = [channels_last_map(m) for m in maps]
+    if not vector_plan(C, maps[0].element_size(), backward=True):
+        raise ValueError(f"{name}: C={C}: a row of more than 128 16-byte "
+                         "chunks")
+    maps = [m if vector_reads(m) else _pack_impl(m) for m in maps]
     geom = []
     for m, scale in zip(maps, project_res):
-        geom += [m.stride(0), m.stride(1), m.stride(3), m.stride(4),
-                 m.shape[3], m.shape[4], int(scale)]
+        # a dim of size 1 is never stepped: its stride is passed as 0
+        geom += [m.stride(d) if m.shape[d] > 1 else 0 for d in (0, 1, 3, 4)]
+        geom += [m.shape[3], m.shape[4], int(scale)]
     return (maps, projected_pix.contiguous(), fov_mask.contiguous(),
             (ctypes.c_longlong * len(geom))(*geom))
 

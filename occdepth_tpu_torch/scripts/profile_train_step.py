@@ -45,8 +45,10 @@ FLAGSHIP = "semantic_kitti/multicam_flospdepth_crp_stereodepth_cascadecls"
 KINDS = (
     ("K3 conv3x3", r"conv3x3"),
     ("K4 dw_filter_grad", r"dw_filter_grad"),
-    ("K1+ bwd flosp_stereo_lift_backward", r"lift_bwd_"),
-    ("K1 fused lift flosp_stereo_lift", r"flosp_stereo_lift"),
+    ("K1+ bwd flosp_stereo_lift_backward",
+     r"lift_bwd_|lift_vector_kernel<[^>]*true>"),
+    ("K1 fused lift flosp_stereo_lift", r"flosp_stereo_lift|lift_vector"),
+    ("packing pack_nhwc (K3's, the lift's maps)", r"pack_nhwc|pack_planes"),
     ("K1 stereo_cosine_fuse", r"stereo_cosine_fuse"),
     ("K2 crp_relation_matmul", r"crp_relation_matmul|crp_wgmma"),
     ("batch norm", r"batch_norm|bn_"),

@@ -386,9 +386,10 @@ def _ta_rig(grid, voxel_size) -> tuple:
     return T, (-size / 2).astype(np.float32)
 
 
-def tartanair_fov_share(grid, voxel_size) -> float:
-    """Share of a synthetic tree's voxels inside both views' FOV, by the
-    dataset's own geometry (pose files, axis remap, vox2pix)."""
+def tartanair_rig_projection(grid, voxel_size) -> tuple:
+    """A synthetic tree's stereo projection by the dataset's own geometry
+    (pose files, axis remap, vox2pix): (pix (1, 2, N, 1, 2) int32, fov
+    (1, 2, N, 1) bool)."""
     from occdepth_tpu_torch.data.tartanair import (
         IMG_H,
         IMG_W,
@@ -402,9 +403,17 @@ def tartanair_fov_share(grid, voxel_size) -> float:
     cams = [quat_to_se3(np.array(p.split(), float)) @ T_CAM_2_BODY
             for p in (TA_POSE_LEFT, TA_POSE_RIGHT)]
     size = np.array(grid, float) * voxel_size - 1e-4
-    fov = [vox2pix(E @ T, INTRINSICS, origin, voxel_size, IMG_W, IMG_H,
-                   tuple(size), 0)[1][:, 0]
-           for E in (np.eye(4), np.linalg.inv(cams[1]) @ cams[0])]
+    views = [vox2pix(E @ T, INTRINSICS, origin, voxel_size, IMG_W, IMG_H,
+                     tuple(size), 0)[:2]
+             for E in (np.eye(4), np.linalg.inv(cams[1]) @ cams[0])]
+    return (np.stack([v[0] for v in views])[None].astype(np.int32),
+            np.stack([v[1] for v in views])[None])
+
+
+def tartanair_fov_share(grid, voxel_size) -> float:
+    """Share of a synthetic tree's voxels inside both views' FOV, by the
+    dataset's own geometry (pose files, axis remap, vox2pix)."""
+    fov = tartanair_rig_projection(grid, voxel_size)[1][0, :, :, 0]
     return float((fov[0] & fov[1]).mean())
 
 
@@ -504,9 +513,10 @@ def nyu_rig() -> tuple:
     return pose.astype(np.float32), np.array([0.0, -2.4, 0.0], np.float32)
 
 
-def nyu_fov_share() -> float:
-    """Share of a synthetic NYU tree's voxels inside both the real and
-    the virtual view's FOV, by the dataset's own geometry."""
+def nyu_rig_projection() -> tuple:
+    """A synthetic NYU tree's real and virtual views' projection by the
+    dataset's own geometry: (pix (1, 2, N, 1, 2) int32, fov (1, 2, N, 1)
+    bool)."""
     from occdepth_tpu_torch.data.nyu import (
         CAM_K,
         IMG_H,
@@ -521,8 +531,16 @@ def nyu_fov_share() -> float:
     T = np.linalg.inv(pose.astype(np.float64))
     shift = np.eye(4)
     shift[0, 3] = -VIRTUAL_BASELINE
-    fov = [vox2pix(E, CAM_K, origin.astype(np.float64), VOXEL_SIZE, IMG_W,
-                   IMG_H, SCENE_SIZE, 0)[1][:, 0] for E in (T, shift @ T)]
+    views = [vox2pix(E, CAM_K, origin.astype(np.float64), VOXEL_SIZE, IMG_W,
+                     IMG_H, SCENE_SIZE, 0)[:2] for E in (T, shift @ T)]
+    return (np.stack([v[0] for v in views])[None].astype(np.int32),
+            np.stack([v[1] for v in views])[None])
+
+
+def nyu_fov_share() -> float:
+    """Share of a synthetic NYU tree's voxels inside both the real and
+    the virtual view's FOV, by the dataset's own geometry."""
+    fov = nyu_rig_projection()[1][0, :, :, 0]
     return float((fov[0] & fov[1]).mean())
 
 

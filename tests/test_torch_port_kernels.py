@@ -1,8 +1,8 @@
 """Port kernels K1/K2/K3/K4/K5/K6: plain versions vs the JAX Pallas kernels
 (interpret mode on the CPU), their autograd, and the CUDA kernels vs the
 plain versions (`cuda` marker, skipped without a card), the fused stereo
-lift (K1 with the gather and the scale sum) and K2 batched over relations
-among them.
+lift (K1 with the gather and the scale sum), its backward, K1's backward
+and K2 batched over relations among them.
 
 JAX is imported inside the tests that compare with it, so the `cuda` cases
 also run on a GPU host without JAX:
@@ -44,10 +44,12 @@ from occdepth_tpu_torch.ops.dw_conv import (
     use_fast_dw_grad,
 )
 from occdepth_tpu_torch.ops.flosp_gather import (
+    channels_last_map,
     flosp_stereo_lift,
     flosp_stereo_lift_backward,
     flosp_stereo_lift_backward_reference,
     flosp_stereo_lift_reference,
+    vector_reads,
 )
 from occdepth_tpu_torch.ops.matmul_probe import (
     matmul_probe,
@@ -56,6 +58,8 @@ from occdepth_tpu_torch.ops.matmul_probe import (
 from occdepth_tpu_torch.ops.row_gather import row_gather, row_gather_reference
 from occdepth_tpu_torch.ops.stereo_fuse import (
     stereo_cosine_fuse,
+    stereo_cosine_fuse_backward,
+    stereo_cosine_fuse_backward_reference,
     stereo_cosine_fuse_reference,
 )
 from occdepth_tpu_torch.testing import lift_inputs
@@ -81,6 +85,33 @@ def test_stereo_fuse_plain_matches_pallas_interpret():
     )
     out = stereo_cosine_fuse(*(torch.from_numpy(a) for a in (f0, f1, m0, m1)))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
+
+
+def test_stereo_fuse_backward_plain_matches_jax_vjp():
+    """K1's closed-form backward (features and masks) against jax.vjp of the
+    JAX package's plain fusion, fp32, within 1e-5 x max(1, max|ref|); the
+    first rows of f0 lie under the eps clamp (tiny, not zero: JAX's norm
+    VJP is NaN at an exact zero)."""
+    jax = pytest.importorskip("jax")
+    from occdepth_tpu.ops.pallas_kernels import (
+        stereo_cosine_fuse_reference as jax_fuse_reference,
+    )
+
+    rng = np.random.RandomState(6)
+    f0, f1 = (rng.randn(1024, 32).astype(np.float32) for _ in range(2))
+    m0, m1 = ((rng.rand(1024) > 0.3).astype(np.float32) for _ in range(2))
+    f0[:4] *= 1e-10
+    g = rng.randn(1024, 32).astype(np.float32)
+    _, vjp = jax.vjp(jax_fuse_reference,
+                     *(jax.numpy.asarray(a) for a in (f0, f1, m0, m1)))
+    want = vjp(jax.numpy.asarray(g))
+    got = stereo_cosine_fuse_backward_reference(
+        *(torch.from_numpy(a) for a in (f0, f1, m0, m1)), torch.from_numpy(g))
+    assert np.linalg.norm(f0[:4], axis=-1).max() < 1e-8
+    for a, b in zip(got, want):
+        b = np.asarray(b)
+        np.testing.assert_allclose(a.numpy(), b, rtol=0,
+                                   atol=1e-5 * max(1.0, np.abs(b).max()))
 
 
 def test_crp_matmul_plain_matches_pallas_interpret():
@@ -904,6 +935,21 @@ def _lift_case(dev, dtype, layout, B, N, P, C, hw, seed):
             torch.from_numpy(fov).to(dev), scales)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vector_reads_takes_only_whole_16_byte_rows(dtype):
+    """The lift reads a map in place only as whole 16-byte chunks: not an
+    NCHW map, a channels-last C = 100 map only where its rows are 16-byte
+    multiples (fp32's 400 bytes, not bf16's 200), and always the padded
+    copy that `channels_last_map` packs (104 channels a row)."""
+    x = torch.randn(1, 2, 100, 5, 7).to(dtype)
+    cl = x.permute(0, 1, 3, 4, 2).contiguous().permute(0, 1, 4, 2, 3)
+    packed = channels_last_map(x)
+    assert not vector_reads(x)
+    assert vector_reads(cl) == (dtype == torch.float32)
+    assert vector_reads(packed) and packed.stride(4) == 104
+    assert torch.equal(packed, x)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout", ["nchw", "channels_last"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -918,10 +964,12 @@ def test_flosp_stereo_lift_kernel_matches_plain(cuda_device, dtype, layout,
                                                case):
     """The fused lift vs its plain version (flosp_gather_flat, the plain
     fusion, the sum over scales) in one launch: fp32 row sums and scale
-    sums in another order, 1e-5 absolute (as K1).  C = 32 and 24 move 16
-    bytes a thread; C = 20 in bf16 (40-byte rows) one element a thread, as
-    NYU's b4 C = 100 in bf16 (200-byte rows, four elements a lane of 32);
-    its b7 C = 200 moves 16 bytes a thread.
+    sums in another order, 1e-5 absolute (as K1).  Maps whose rows the
+    kernel cannot read as whole 16-byte chunks (NCHW maps; channels-last
+    C = 20 and 100 in bf16: 40- and 200-byte rows) are packed to padded
+    channels-last rows first (C = 20 and 100 in bf16 read 24 and 104, the
+    pad channels dropped); channels-last maps of 16-byte rows (C = 32, 24,
+    200) are read in place.
     Points on every map's last row and column, out of FOV, and voxels
     seen by one view only (`lift_inputs`)."""
     B, N, P, C, hw = case
@@ -1018,6 +1066,98 @@ def test_flosp_stereo_lift_gradient_matches_plain_autograd(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["nchw", "channels_last", "packed"])
+def test_flosp_stereo_lift_nyu_c100_takes_16_byte_path(cuda_device, layout):
+    """NYU b4's C = 100 bf16 maps move as 16-byte chunks: NCHW maps and a
+    caller's own channels-last maps (200-byte rows, no 16-byte multiple)
+    are packed first, one packing launch each, to 104-channel rows of 208
+    bytes (thirteen chunks); packed maps are read in place.  One lift
+    launch, within 1e-5 of the plain version."""
+    maps, pix, fov, scales = _lift_case(
+        cuda_device, torch.bfloat16,
+        "nchw" if layout == "packed" else layout, 1, 5000, 1, 100, (60, 80),
+        seed=11)
+    if layout == "packed":
+        maps = [channels_last_map(m) for m in maps]
+    assert [vector_reads(m) for m in maps] == [layout == "packed"] * 4
+    before = (to_padded_channels_last.launches, flosp_stereo_lift.launches)
+    out = flosp_stereo_lift(maps, pix, fov, scales)
+    torch.cuda.synchronize()
+    assert (to_padded_channels_last.launches - before[0],
+            flosp_stereo_lift.launches - before[1]) == (
+        0 if layout == "packed" else len(maps), 1)
+    torch.testing.assert_close(
+        out, flosp_stereo_lift_reference(maps, pix, fov, scales), atol=1e-5,
+        rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flosp_stereo_lift_packs_each_nchw_map_once_per_step(cuda_device,
+                                                             dtype):
+    """One forward and backward of the lift on NCHW leaves (a train
+    step's): one packing launch per map (the backward reads the forward's
+    copies), one forward and one backward kernel launch, and the maps'
+    gradients those of the plain backward (1e-5 x max(1, max|ref|) in
+    fp32, one bf16 rounding apart in bf16)."""
+    maps, pix, fov, scales = _lift_case(cuda_device, dtype, "nchw", 1, 3000,
+                                        1, 20, (37, 61), seed=12)
+    leaves = [m.clone().requires_grad_() for m in maps]
+    cot = torch.randn(1, 3000, 20, device=cuda_device)
+    before = (to_padded_channels_last.launches, flosp_stereo_lift.launches,
+              flosp_stereo_lift_backward.launches)
+    got = torch.autograd.grad(flosp_stereo_lift(leaves, pix, fov, scales),
+                              leaves, cot)
+    torch.cuda.synchronize()
+    after = (to_padded_channels_last.launches, flosp_stereo_lift.launches,
+             flosp_stereo_lift_backward.launches)
+    assert [a - b for a, b in zip(after, before)] == [len(maps), 1, 1]
+    want = flosp_stereo_lift_backward_reference(maps, pix, fov, scales, 1e-8,
+                                                cot)
+    for a, b in zip(got, want):
+        scale = max(1.0, b.float().abs().max().item())
+        torch.testing.assert_close(
+            a.float(), b.float(), atol=1e-5 * scale,
+            rtol=0 if dtype == torch.float32 else 2 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [32, 40, 30])
+def test_stereo_fuse_backward_kernel_matches_plain(cuda_device, C):
+    """K1's backward kernel vs its plain closed form
+    (`stereo_cosine_fuse_backward_reference`) and vs autograd of the plain
+    fusion, on strided views of one (B, V, N, C) tensor with rows seen by
+    one view only, zero rows (the [|f| > eps] subgradient) and masks
+    that require grad: fp32 sums of C terms in another order, within 1e-5
+    of max(1, max|ref|).  C = 30 moves one element a lane."""
+    g = torch.Generator(device=cuda_device).manual_seed(C)
+    valid = (torch.rand(2, 2, 3001, device=cuda_device, generator=g) > 0.3
+             ).float()
+    feats = torch.randn(2, 2, 3001, C, device=cuda_device,
+                        generator=g) * valid[..., None]
+    feats[:, :, :7] = 0.0
+    cot = torch.randn(2, 3001, C, device=cuda_device, generator=g)
+    args = (feats[:, 0], feats[:, 1], valid[:, 0], valid[:, 1])
+    before = stereo_cosine_fuse_backward.launches
+    got = stereo_cosine_fuse_backward(*args, cot)
+    torch.cuda.synchronize()
+    assert stereo_cosine_fuse_backward.launches == before + 1
+    want = stereo_cosine_fuse_backward_reference(*args, cot)
+    leaves = [feats.clone().requires_grad_(), valid.clone().requires_grad_()]
+    views = (leaves[0][:, 0], leaves[0][:, 1], leaves[1][:, 0],
+             leaves[1][:, 1])
+    auto_k = torch.autograd.grad(stereo_cosine_fuse(*views), leaves, cot)
+    auto_r = torch.autograd.grad(stereo_cosine_fuse_reference(*views),
+                                 leaves, cot)
+    assert stereo_cosine_fuse_backward.launches == before + 2
+    pairs = list(zip(got, want)) + list(zip(auto_k, auto_r))
+    for a, b in pairs:
+        assert a.shape == b.shape
+        scale = max(1.0, b.abs().max().item())
+        torch.testing.assert_close(a, b, atol=1e-5 * scale, rtol=0)
+
+
+@pytest.mark.cuda
 def test_lift_and_fuse_raise_on_unsupported_input(cuda_device):
     maps, pix, fov, scales = _lift_case(cuda_device, torch.float32, "nchw",
                                         1, 100, 1, 8, (21, 37), seed=1)
@@ -1049,7 +1189,7 @@ def test_lift_and_fuse_raise_on_unsupported_input(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("op", ["flosp_stereo_lift",
-                                "flosp_stereo_lift_backward",
+                                "flosp_stereo_lift_backward", "pack_map",
                                 "crp_relation_matmul", "conv3x3"])
 def test_registered_ops_pass_opcheck_on_cuda(cuda_device, op):
     """The operators' CUDA implementations (the kernels) against their fake
@@ -1075,6 +1215,9 @@ def test_registered_ops_pass_opcheck_on_cuda(cuda_device, op):
                                                 32, (21, 37), seed=4)
             cases.append((maps, pix, fov, list(scales), 1e-8,
                           randn(2, 300, 32)))
+        elif op == "pack_map":
+            cases.append((randn(2, 2, 20, 21, 37,
+                                dtype=dtype).requires_grad_(),))
         elif op == "crp_relation_matmul":
             cases.append((randn(2, 4, 512, 64, dtype=dtype).requires_grad_(),
                           randn(2, 64, 32, dtype=dtype).requires_grad_()))
