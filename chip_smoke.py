@@ -50,9 +50,9 @@ Phases, one line each:
      (b3, feature 32, 370x1220 stereo, 256x256x32 grid, 20 classes, bf16,
      seeded random weights) serves 5 frames at batch size 2; the kernels'
      launch counters, set to 0 just before, must grow over that run (the
-     fused lift and K2 once per dispatch); the device time of sfa_lift and
-     of the CRP block per dispatch (CUDA events,
-     scripts/profile_serve_stages.py's hooks);
+     fused lift and K2 once per dispatch); the device time of each of the
+     program's spans per dispatch (the serving and model-stage spans of
+     tracing.py, each with its device time once per dispatch);
   7. K4 dw_filter_grad (one launch per conv: clusters of blocks per
      channel, bands staged by bulk copies) vs its plain version at every
      stride-1 depthwise shape of the flagship encoder (batch 1, the 22
@@ -294,6 +294,10 @@ K2_RTOL = 2e-5  # fp32 sums of 512 terms in another order, x max|ref|
 K2_RELATIONS = 4
 TINY_ATOL = 1e-3  # fp32 CUDA (cuDNN, TF32 off) vs CPU sums over a whole net
 N_FRAMES, BATCH = 5, 2
+# the spans a serving dispatch opens (occdepth_tpu_torch/tracing.py)
+SERVE_SPANS = ("serve.dispatch", "serve.upload", "serve.forward",
+               "serve.drain", "model.backbone_2d", "model.lift", "model.oad",
+               "model.decoder_3d", "model.crp", "model.heads")
 K1_GRAD_TOL = 1e-5  # fp32, the same formula's autograd in another order
 K2_GRAD_RTOL = 2e-5  # x max|ref| in fp32 (512- and 4096-term sums)
 K2_GRAD_BF16_RTOL = 2 ** -7  # one bf16 rounding of the returned gradient
@@ -3654,9 +3658,9 @@ def main() -> None:
     from occdepth_tpu_torch.data.tartanair import TartanAirDataset
     from occdepth_tpu_torch import native_ext
     from occdepth_tpu_torch.ops import cuda_lib
+    from occdepth_tpu_torch import tracing
     from occdepth_tpu_torch.scripts.profile_serve_stages import (
         serving_setup,
-        stage_events,
         stage_ms,
     )
     from occdepth_tpu_torch.testing import (
@@ -3708,21 +3712,24 @@ def main() -> None:
     reset_counts()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    tracing.clear()
     t0 = time.perf_counter()
-    with stage_events(pipe.model) as events:
+    with tracing.recording():
         start.record()
         preds = list(pipe.run(frames))
         end.record()
-        end.synchronize()
+    end.synchronize()
     wall_s = time.perf_counter() - t0
     launches = read_counts()
-    stages = stage_ms(events)
-    log("serve_stages", gpu=repr(smi), dispatches=len(events["sfa_lift"]),
-        sfa_lift_ms_per_dispatch=f"{stages['sfa_lift']:.4f}",
-        crp_ms_per_dispatch=f"{stages['crp']:.4f}",
-        timed="median over the dispatches, CUDA events around sfa_lift "
-              "and CPMegaVoxels.forward")
     dispatches = -(-N_FRAMES // BATCH)
+    log("serve_stages", gpu=repr(smi), dispatches=dispatches,
+        **{f"{k}_ms_per_dispatch": f"{v:.4f}"
+           for k, v in stage_ms().items()},
+        timed="median over the dispatches, the program's spans")
+    spans = tracing.device_ms()
+    for name in SERVE_SPANS:
+        n = len(spans.get(name, ()))
+        check(n == dispatches, f"{name}: device times of {n} spans")
     ms_frame = start.elapsed_time(end) / N_FRAMES
     peak = torch.cuda.max_memory_allocated()
     log("serve", frames=len(preds), dispatches=dispatches,

@@ -37,6 +37,11 @@ statistics advance view 0 first.  Under `share_2d_backbone_gradient` views
 after the first run under `torch.no_grad()`: the same gradient as the JAX
 package's `stop_gradient`, without building their backward graph.
 
+Each stage runs under a span (`tracing.py`): `model.backbone_2d` (each
+2D UNet call), `model.virtual_view`, `model.lift`, `model.oad` and
+`model.decoder_3d`, inside which the decoders open `model.crp` and
+`model.heads`.
+
 Numerics follow `compute_dtype` (see models/layers.py): the image is cast
 once, convolutions run in that dtype, while BatchNorm, the softmaxes, the
 SFA fusion, the CRP accumulation and the frustum grid-sample run in
@@ -49,6 +54,7 @@ from typing import Dict
 import torch
 import torch.nn as nn
 
+from occdepth_tpu_torch import tracing
 from occdepth_tpu_torch.config import OccDepthConfig
 from occdepth_tpu_torch.models.flosp_depth import FlospDepth
 from occdepth_tpu_torch.models.sfa import sfa_lift
@@ -132,22 +138,23 @@ class OccDepthModel(nn.Module):
         """(B, V, H, W, 3) views -> {'1_s': (B, V, C, h, w)}."""
         B, V, H, W, _ = img.shape
 
-        def nchw(x):
-            return x.permute(0, 3, 1, 2).to(
-                dtype=self.compute_dtype, memory_format=torch.contiguous_format)
+        def net_rgb(x):
+            with tracing.span("model.backbone_2d"):
+                return self.net_rgb(x.permute(0, 3, 1, 2).to(
+                    dtype=self.compute_dtype,
+                    memory_format=torch.contiguous_format))
 
         if not (self.training and V > 1):
             # all views in one call (frozen BN at eval)
-            x = nchw(img.reshape(B * V, H, W, 3))
             return {k: v.reshape(B, V, *v.shape[1:])
-                    for k, v in self.net_rgb(x).items()}
+                    for k, v in net_rgb(img.reshape(B * V, H, W, 3)).items()}
         per_view = []
         for view in range(V):
             if self.cfg.share_2d_backbone_gradient and view > 0:
                 with torch.no_grad():
-                    per_view.append(self.net_rgb(nchw(img[:, view])))
+                    per_view.append(net_rgb(img[:, view]))
             else:
-                per_view.append(self.net_rgb(nchw(img[:, view])))
+                per_view.append(net_rgb(img[:, view]))
         return {k: torch.stack([f[k] for f in per_view], dim=1)
                 for k in per_view[0]}
 
@@ -158,20 +165,23 @@ class OccDepthModel(nn.Module):
 
         # ---- NYU virtual right view from RGB-D, warped in float32 ----
         if cfg.dataset == "NYU" and cfg.use_depth_gt and "gt_depth" in batch:
-            bf = batch["virtual_bf"].reshape(-1)[0].float()
-            gt_depth = batch["gt_depth"].float()
-            for scale in cfg.project_res:
-                key = f"1_{scale}"
-                virt = _virtual_view(feats[key][:, 0].float(), gt_depth,
-                                     scale, bf).to(dtype)
-                feats[key] = torch.cat([feats[key], virt[:, None]], dim=1)
+            with tracing.span("model.virtual_view"):
+                bf = batch["virtual_bf"].reshape(-1)[0].float()
+                gt_depth = batch["gt_depth"].float()
+                for scale in cfg.project_res:
+                    key = f"1_{scale}"
+                    virt = _virtual_view(feats[key][:, 0].float(), gt_depth,
+                                         scale, bf).to(dtype)
+                    feats[key] = torch.cat([feats[key], virt[:, None]],
+                                           dim=1)
 
         # ---- FLoSP lift + Stereo-SFA fusion (float32) ----
-        x3d = sfa_lift(
-            {f"1_{s}": feats[f"1_{s}"] for s in cfg.project_res},
-            batch["projected_pix"], batch["fov_mask"], cfg.project_res,
-            cfg.scene_dims(cfg.project_scale), cfg.dataset,
-        )  # (B, X, Y, Z, C)
+        with tracing.span("model.lift"):
+            x3d = sfa_lift(
+                {f"1_{s}": feats[f"1_{s}"] for s in cfg.project_res},
+                batch["projected_pix"], batch["fov_mask"], cfg.project_res,
+                cfg.scene_dims(cfg.project_scale), cfg.dataset,
+            )  # (B, X, Y, Z, C)
         x3d = x3d.permute(0, 4, 1, 2, 3)
 
         out: Dict[str, torch.Tensor] = {}
@@ -179,20 +189,22 @@ class OccDepthModel(nn.Module):
         if cfg.trans_2d_to_3d == "flosp_depth":
             key = f"1_{cfg.flosp_depth_conf.downsample_factor}"
             v = 1 if cfg.dataset == "NYU" else feats[key].shape[1]
-            result = self.flosp_depth(feats[key][:, :v], batch["cam_k"][:, :v],
-                                      batch["T_velo_2_cam"][:, :v],
-                                      batch["ida_mats"][:, :v],
-                                      batch.get("vox_origin"))
-            if cfg.with_depth_gt:
-                weight, depth = result
-                out["depth_pred"] = depth.permute(0, 1, 3, 4, 2)
-            else:
-                weight = result
-            x3d = x3d * weight[:, None] * 100.0
+            with tracing.span("model.oad"):
+                result = self.flosp_depth(
+                    feats[key][:, :v], batch["cam_k"][:, :v],
+                    batch["T_velo_2_cam"][:, :v], batch["ida_mats"][:, :v],
+                    batch.get("vox_origin"))
+                if cfg.with_depth_gt:
+                    weight, depth = result
+                    out["depth_pred"] = depth.permute(0, 1, 3, 4, 2)
+                else:
+                    weight = result
+                x3d = x3d * weight[:, None] * 100.0
 
         # ---- 3D UNet + heads ----
-        x3d = x3d.to(dtype=dtype, memory_format=torch.contiguous_format)
-        net_out = self.net_3d_decoder(x3d)
+        with tracing.span("model.decoder_3d"):
+            x3d = x3d.to(dtype=dtype, memory_format=torch.contiguous_format)
+            net_out = self.net_3d_decoder(x3d)
         out["ssc_logit"] = net_out["ssc_logit"].float().permute(0, 2, 3, 4, 1)
         for key in ("occ_logit", "occluded_logit"):
             if key in net_out:

@@ -15,6 +15,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn as nn
 
+from occdepth_tpu_torch import tracing
 from occdepth_tpu_torch.models.crp3d import CPMegaVoxels
 from occdepth_tpu_torch.models.unet3d_blocks import (
     Convblock3d,
@@ -63,18 +64,20 @@ class UNet3DKitti(nn.Module):
         x3d_l2 = self.process_l1(x3d_l1)
         x3d_l3 = self.process_l2(x3d_l2)
         if self.context_prior:
-            ret = self.CP_mega_voxels(x3d_l3)
+            with tracing.span("model.crp"):
+                ret = self.CP_mega_voxels(x3d_l3)
             x3d_l3 = ret["x"]
             res["P_logits"] = ret["P_logits"]
         x3d_up_l2 = self.up_13_l2(x3d_l3) + x3d_l2
         x3d_up_l1 = self.up_12_l1(x3d_up_l2) + x3d_l1
         x3d_full = self.up_l1_lfull(x3d_up_l1)
-        ssc, occ = self.ssc_head(x3d_full)
+        with tracing.span("model.heads"):
+            ssc, occ = self.ssc_head(x3d_full)
+            if self.occluded_head is not None:
+                res["occluded_logit"] = self.occluded_head(x3d_full)
         res["ssc_logit"] = ssc
         if occ is not None:
             res["occ_logit"] = occ
-        if self.occluded_head is not None:
-            res["occluded_logit"] = self.occluded_head(x3d_full)
         return res
 
 
@@ -111,12 +114,14 @@ class UNet3DNYU(nn.Module):
         x3d_1_8 = self.process_1_4(x3d_1_4)
         x3d_1_16 = self.process_1_8(x3d_1_8)
         if self.context_prior:
-            ret = self.CP_mega_voxels(x3d_1_16)
+            with tracing.span("model.crp"):
+                ret = self.CP_mega_voxels(x3d_1_16)
             x3d_1_16 = ret["x"]
             res["P_logits"] = ret["P_logits"]
         x3d_up_1_8 = self.up_1_16_1_8(x3d_1_16) + x3d_1_8
         x3d_up_1_4 = self.up_1_8_1_4(x3d_up_1_8) + x3d_1_4
-        ssc, occ = self.ssc_head_1_4(x3d_up_1_4)
+        with tracing.span("model.heads"):
+            ssc, occ = self.ssc_head_1_4(x3d_up_1_4)
         res["ssc_logit"] = ssc
         if occ is not None:
             res["occ_logit"] = occ

@@ -11,8 +11,9 @@ loading is timed) it reports:
      with `decoder_conv_impl` = xla (cuDNN) and = pallas (K3), in turns
      xla, pallas, pallas, xla, each the median over --steps steps after 2
      warm-up steps;
-  2. for each, one step split by CUDA events into forward, losses and
-     confusion counts, the pieces `eval_step` runs;
+  2. for each, the device ms of each span of one real `eval_step`
+     (`occdepth_tpu_torch/tracing.py`): `eval.step`, `eval.forward`,
+     `eval.losses`, `eval.confusion` and the model's stages;
   3. for each, a torch.profiler trace of 2 steps: device busy share of the
      window, kernel time by kind (K3 and cuDNN's convolutions apart), the
      top kernels;
@@ -32,14 +33,14 @@ import torch
 
 from occdepth_tpu_torch.config import default_config_path, load_config
 from occdepth_tpu_torch.data.batch import make_synthetic_batch
-from occdepth_tpu_torch.losses import confusion_update
 from occdepth_tpu_torch.scripts.profile_train_step import (
     FLAGSHIP,
-    _device_us,
     _kind,
     _model,
+    kernels,
+    spans_ms,
 )
-from occdepth_tpu_torch.training.step import compute_losses, eval_step
+from occdepth_tpu_torch.training.step import eval_step
 
 IMPLS = ("xla", "pallas")
 
@@ -58,25 +59,6 @@ def _steps_ms(cfg, model, batch, n: int) -> list:
     return times
 
 
-def _phases_ms(cfg, model, batch) -> dict:
-    """One step's pieces, in the order eval_step runs them."""
-    inputs = {k: v for k, v in batch.items() if k != "sample_valid"}
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-    model.eval()
-    with torch.inference_mode():
-        ev[0].record()
-        out = model(inputs)
-        ev[1].record()
-        compute_losses(cfg, out, inputs, 0.0, is_test=True)
-        ev[2].record()
-        confusion_update(out["ssc_logit"].argmax(dim=-1), inputs["target"],
-                         cfg.n_classes, batch["sample_valid"])
-        ev[3].record()
-    ev[3].synchronize()
-    names = ("forward", "losses", "confusion")
-    return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
-
-
 def _profile(cfg, model, batch) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
@@ -88,14 +70,12 @@ def _profile(cfg, model, batch) -> dict:
             eval_step(cfg, model, batch)
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [(e.key, _device_us(e) / 1e3, e.count)
-               for e in prof.key_averages() if _device_us(e) > 0
-               and e.device_type == torch.autograd.DeviceType.CUDA]
-    total = sum(ms for _, ms, _ in kernels)
+    ks = kernels(prof)
+    total = sum(ms for _, ms, _ in ks)
     kinds = {}
-    for name, ms, _ in kernels:
+    for name, ms, _ in ks:
         kinds[_kind(name)] = kinds.get(_kind(name), 0.0) + ms
-    top = sorted(kernels, key=lambda k: -k[1])[:15]
+    top = sorted(ks, key=lambda k: -k[1])[:15]
     return {
         "window_ms_2_steps": window_ms,
         "kernel_ms_2_steps": total,
@@ -141,7 +121,8 @@ def main() -> None:
         model = _model(cfgs[impl], dev)
         _steps_ms(cfgs[impl], model, batch, 0)  # warm-up
         torch.cuda.reset_peak_memory_stats()
-        result["phases_ms"][impl] = _phases_ms(cfgs[impl], model, batch)
+        result["phases_ms"][impl] = spans_ms(
+            lambda: eval_step(cfgs[impl], model, batch))
         result["peak_mem_gib"][impl] = torch.cuda.max_memory_allocated() / 2**30
         result["profile"][impl] = _profile(cfgs[impl], model, batch)
         del model

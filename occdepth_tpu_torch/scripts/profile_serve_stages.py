@@ -1,4 +1,5 @@
-"""Device time of the serving path's lift and CRP stages, per dispatch.
+"""Device time of the serving path's stages per dispatch, from the
+program's spans.
 
     python -m occdepth_tpu_torch.scripts.profile_serve_stages \\
         [--frames 10] [--batch 2] [--json]
@@ -6,76 +7,37 @@
 Serves the flagship KITTI stereo config through `ServingPipeline` as
 `chip_smoke.py` phase 6 does (b3, feature 32, 370x1220 stereo, 256x256x32
 grid, bf16, `use_stereo_depth_gt=false`, seeded random weights, seeded
-random uint8 frames) and brackets two stages of every dispatch with CUDA
-events on the serving stream:
-  * `sfa_lift`: the FLoSP lift of every scale with the Stereo-SFA fusion
-    and the sum over scales (kernel K1 and the gathers around it);
-  * the CRP block (`CPMegaVoxels.forward`): ASPP, the mega-context and
-    relation-logit convs, the relation products (kernel K2), the resize.
-Each stage's time is the device time between its two events, so it
-includes any wait for the host's launches inside the stage.  It prints
-the median over the timed dispatches (after one warm-up dispatch) and
-ms/frame over the run; --json adds one JSON line.  It uses only entry
-points the port has had since its first slice, so the same script times
-an older tree (PYTHONPATH pointing at its checkout).
+random uint8 frames) under `tracing.recording()`, and reads each span the
+program opens in a dispatch (`occdepth_tpu_torch/tracing.py`): the
+dispatch's `serve.upload` and `serve.forward`, the model's
+`model.backbone_2d`, `model.lift` (the FLoSP lift with the Stereo-SFA
+fusion, kernel K1+), `model.oad`, `model.decoder_3d` and inside it
+`model.crp` (the relation products, kernel K2) and `model.heads`, and the
+readout `serve.drain`.  Each span's device time runs from the CUDA event
+at its start to the one at its end, so it includes any wait for the
+host's launches inside it.  It prints the median over the timed
+dispatches (after one warm-up dispatch) and ms/frame over the run;
+--json adds one JSON line.
 """
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import statistics
 
 import numpy as np
 import torch
 
+from occdepth_tpu_torch import tracing
+
 FLAGSHIP = "semantic_kitti/multicam_flospdepth_crp_stereodepth_cascadecls"
 
 
-@contextlib.contextmanager
-def stage_events(model):
-    """Record (start, end) CUDA events around `sfa_lift` and the CRP block
-    of every forward of `model`; yields {stage: [(start, end), ...]}."""
-    from occdepth_tpu_torch.models import occdepth
-    from occdepth_tpu_torch.models.crp3d import CPMegaVoxels
-
-    events = {"sfa_lift": [], "crp": []}
-
-    def record():
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        return ev
-
-    lift = occdepth.sfa_lift
-
-    def timed_lift(*args, **kwargs):
-        start = record()
-        out = lift(*args, **kwargs)
-        events["sfa_lift"].append((start, record()))
-        return out
-
-    starts, hooks = [], []
-    for m in model.modules():
-        if isinstance(m, CPMegaVoxels):
-            hooks.append(m.register_forward_pre_hook(
-                lambda mod, inp: starts.append(record())))
-            hooks.append(m.register_forward_hook(
-                lambda mod, inp, out: events["crp"].append(
-                    (starts.pop(), record()))))
-    occdepth.sfa_lift = timed_lift
-    try:
-        yield events
-    finally:
-        occdepth.sfa_lift = lift
-        for h in hooks:
-            h.remove()
-
-
-def stage_ms(events, skip: int = 0) -> dict:
-    """{stage: median device ms over the recorded calls after `skip`}; call
-    after a synchronise."""
-    return {k: statistics.median(s.elapsed_time(e) for s, e in v[skip:])
-            for k, v in events.items() if len(v) > skip}
+def stage_ms(skip: int = 0) -> dict:
+    """{span name: median device ms over its recorded spans after the
+    first `skip`}; call after a synchronise."""
+    return {k: statistics.median(v[skip:])
+            for k, v in tracing.device_ms().items() if len(v) > skip}
 
 
 def serving_setup(batch: int):
@@ -114,16 +76,17 @@ def main() -> None:
     frames = [rs.randint(0, 256, size=(cfg.n_views, H, W, 3)).astype(np.uint8)
               for _ in range(args.frames)]
     torch.cuda.synchronize()
-    with stage_events(pipe.model) as events:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
+    tracing.clear()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with tracing.recording():
         start.record()
         n_out = len(list(pipe.run(frames)))
         end.record()
-        end.synchronize()
-    stages = stage_ms(events, skip=1)
+    end.synchronize()
+    stages = stage_ms(skip=1)
     res = {"gpu": gpu_line(), "frames": n_out, "batch": args.batch,
-           "dispatches": len(events["sfa_lift"]),
+           "dispatches": len(tracing.device_ms()["serve.dispatch"]),
            "ms_per_frame": start.elapsed_time(end) / n_out,
            **{f"{k}_ms_per_dispatch": v for k, v in stages.items()}}
     for k, v in res.items():

@@ -13,8 +13,11 @@ reports:
   1. ms/step of `train_step` with `dw_conv_grad` = xla (PyTorch's own
      depthwise weight gradient) and = pallas (K4), in turns xla, pallas,
      pallas, xla, each the median over --steps steps after 2 warm-up steps;
-  2. for dw_conv_grad=pallas, one step split by CUDA events into forward,
-     losses, backward and clip + AdamW, the same pieces `train_step` runs;
+  2. for dw_conv_grad=pallas, the device ms of each span of one real
+     `train_step` (`occdepth_tpu_torch/tracing.py`): `train.step` and its
+     phases `train.forward`, `train.losses`, `train.backward`,
+     `train.confusion` and `train.update` (zero-fill, clip, AdamW), and
+     the model's stages inside the forward, each summed over its spans;
   3. a torch.profiler trace of 2 steps: device busy share of the window,
      kernel time by kind, the top kernels, and K1/K2/K4's shares;
   4. peak device memory.
@@ -33,11 +36,12 @@ import time
 
 import torch
 
+from occdepth_tpu_torch import tracing
 from occdepth_tpu_torch.config import default_config_path, load_config
 from occdepth_tpu_torch.data.batch import make_synthetic_batch
 from occdepth_tpu_torch.models import OccDepthModel
-from occdepth_tpu_torch.training.optim import clip_by_global_norm_, make_optimizer
-from occdepth_tpu_torch.training.step import compute_losses, train_step
+from occdepth_tpu_torch.training.optim import make_optimizer
+from occdepth_tpu_torch.training.step import train_step
 
 FLAGSHIP = "semantic_kitti/multicam_flospdepth_crp_stereodepth_cascadecls"
 
@@ -103,29 +107,37 @@ def _steps_ms(cfg, batch, dev, n: int) -> list:
     return times
 
 
+def spans_ms(run) -> dict:
+    """{span name: device ms summed over its spans} of `run()` under
+    `tracing.recording()`."""
+    tracing.clear()
+    with tracing.recording():
+        run()
+    torch.cuda.synchronize()
+    return {k: sum(v) for k, v in tracing.device_ms().items()}
+
+
 def _phases_ms(cfg, batch, dev) -> dict:
-    """One step's pieces, in the order train_step runs them."""
+    """The spans of one train step after 2 warm-up steps."""
     model = _model(cfg, dev)
     opt = make_optimizer(model.parameters(), cfg)
     for _ in range(2):
         train_step(cfg, model, opt, [batch], 0.0, cfg.lr)
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-    model.train()
-    opt.zero_grad(set_to_none=True)
-    ev[0].record()
-    out = model(batch)
-    ev[1].record()
-    loss, _ = compute_losses(cfg, out, batch, 0.0)
-    ev[2].record()
-    loss.backward()
-    ev[3].record()
-    clip_by_global_norm_([p.grad for p in model.parameters()
-                          if p.grad is not None], cfg.gradient_clip_val)
-    opt.step()
-    ev[4].record()
-    ev[4].synchronize()
-    names = ("forward", "losses", "backward", "clip_adamw")
-    return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+    return spans_ms(lambda: train_step(cfg, model, opt, [batch], 0.0, cfg.lr))
+
+
+def kernels(prof) -> list:
+    """(name, device ms, calls) of each kernel, memset and copy in a
+    profiler trace.  A record_function range (the optimizer's, the
+    program's spans) also shows on the device timeline, spanning the
+    kernels it encloses; it shares its name with its host event and is
+    left out, or it would count them twice."""
+    host = {e.key for e in prof.key_averages()
+            if e.device_type != torch.autograd.DeviceType.CUDA}
+    return [(e.key, _device_us(e) / 1e3, e.count)
+            for e in prof.key_averages() if _device_us(e) > 0
+            and e.device_type == torch.autograd.DeviceType.CUDA
+            and e.key not in host]
 
 
 def _profile(cfg, batch, dev) -> dict:
@@ -143,18 +155,12 @@ def _profile(cfg, batch, dev) -> dict:
             train_step(cfg, model, opt, [batch], 0.0, cfg.lr)
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
-    # device events only; the optimizer's record_function range
-    # ("Optimizer.step#AdamW.step") also appears on the device timeline,
-    # spanning the kernels it encloses, and would count them twice
-    kernels = [(e.key, _device_us(e) / 1e3, e.count)
-               for e in prof.key_averages() if _device_us(e) > 0
-               and e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.key.startswith("Optimizer.")]
-    total = sum(ms for _, ms, _ in kernels)
+    ks = kernels(prof)
+    total = sum(ms for _, ms, _ in ks)
     kinds = {}
-    for name, ms, _ in kernels:
+    for name, ms, _ in ks:
         kinds[_kind(name)] = kinds.get(_kind(name), 0.0) + ms
-    top = sorted(kernels, key=lambda k: -k[1])[:20]
+    top = sorted(ks, key=lambda k: -k[1])[:20]
     return {
         "window_ms_2_steps": window_ms,
         "kernel_ms_2_steps": total,

@@ -10,7 +10,10 @@ Counterpart of `occdepth_tpu/serving/pipeline.py::ServingPipeline`:
 * **bounded in-flight batches** — kernels are enqueued on the current
   CUDA stream without host synchronisation, up to `max_in_flight` batches
   ahead of the host's readout of the oldest one;
-* **compact egress** — only the uint8 argmax grid leaves the device.
+* **compact egress** — only the uint8 argmax grid leaves the device;
+* **spans** (`tracing.py`) — `serve.dispatch` around each batch's
+  `serve.upload` and `serve.forward`, and `serve.drain` around the
+  blocking readout of one batch, under its dispatch's unit id.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from typing import Dict, Iterable, Iterator
 import numpy as np
 import torch
 
+from occdepth_tpu_torch import tracing
 from occdepth_tpu_torch.config import OccDepthConfig
 from occdepth_tpu_torch.models.occdepth import OccDepthModel
 
@@ -97,11 +101,21 @@ class ServingPipeline:
         uint8 grid per input frame.
         """
         B = self.batch_size
-        in_flight: deque = deque()  # (device result, n_valid)
+        in_flight: deque = deque()  # (device result, n_valid, dispatch span)
+
+        def dispatch(buf, n_valid):
+            with tracing.span("serve.dispatch") as span:
+                with tracing.span("serve.upload"):
+                    x = self._upload(buf)
+                with tracing.span("serve.forward"):
+                    in_flight.append((self._serve(x), n_valid, span))
 
         def drain_one():
-            out, n_valid = in_flight.popleft()
-            yield from out.cpu().numpy()[:n_valid]
+            out, n_valid, span = in_flight.popleft()
+            # the blocking readout alone, under the id of its dispatch
+            with tracing.span("serve.drain", span and span.unit):
+                grids = out.cpu().numpy()
+            yield from grids[:n_valid]
 
         buf = []
         for frame in frames:
@@ -109,13 +123,13 @@ class ServingPipeline:
             if len(buf) == B:
                 while len(in_flight) >= self.max_in_flight:
                     yield from drain_one()
-                in_flight.append((self._serve(self._upload(buf)), B))
+                dispatch(buf, B)
                 buf = []
         if buf:
             n_valid = len(buf)
             buf += [buf[0]] * (B - n_valid)
             while len(in_flight) >= self.max_in_flight:
                 yield from drain_one()
-            in_flight.append((self._serve(self._upload(buf)), n_valid))
+            dispatch(buf, n_valid)
         while in_flight:
             yield from drain_one()

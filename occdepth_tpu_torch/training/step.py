@@ -6,6 +6,11 @@ backward per microbatch, clips, applies one AdamW update and returns the
 logs with the step's confusion counts; `eval_step` is the validation step
 (forward, test-time losses, confusion counts).
 
+Both steps run under spans (`tracing.py`): `train.step` around
+`train.forward`, `train.losses`, `train.backward`, `train.confusion` and
+`train.update` (`apply_update`), and `eval.step` around `eval.forward`,
+`eval.losses` and `eval.confusion`.
+
 Numerics follow the port's explicit-cast rule (`models/layers.py`): no
 `torch.autocast` and no gradient scaler, as the JAX package has none.
 """
@@ -17,6 +22,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
+from occdepth_tpu_torch import tracing
 from occdepth_tpu_torch.config import OccDepthConfig
 from occdepth_tpu_torch.data.params import class_weights_for, class_weights_occ_for
 from occdepth_tpu_torch.losses import (
@@ -122,27 +128,34 @@ def train_step(
     `no_sync()`, and the last all-reduces the summed gradients, which DDP
     averages over the ranks before the clip.
     """
-    model.train()
-    optimizer.zero_grad(set_to_none=True)
-    K = len(micro_batches)
-    logs_sum: Dict[str, torch.Tensor] = {}
-    completion = conf = None
-    for i, mb in enumerate(micro_batches):
-        with (model.no_sync() if i < K - 1 and hasattr(model, "no_sync")
-              else contextlib.nullcontext()):
-            out = model(mb)
-            loss, logs = compute_losses(cfg, out, mb, progress)
-            (loss / K).backward()
-        with torch.no_grad():
-            comp_k, conf_k = confusion_update(
-                out["ssc_logit"].argmax(dim=-1), mb["target"], cfg.n_classes)
-            completion = comp_k if completion is None else completion + comp_k
-            conf = conf_k if conf is None else conf + conf_k
-            for k, v in logs.items():
-                v = v.detach()
-                logs_sum[k] = v if k not in logs_sum else logs_sum[k] + v
-    apply_update(cfg, optimizer, lr)
-    return {k: v / K for k, v in logs_sum.items()}, completion, conf
+    with tracing.span("train.step"):
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        K = len(micro_batches)
+        logs_sum: Dict[str, torch.Tensor] = {}
+        completion = conf = None
+        for i, mb in enumerate(micro_batches):
+            with (model.no_sync() if i < K - 1 and hasattr(model, "no_sync")
+                  else contextlib.nullcontext()):
+                with tracing.span("train.forward"):
+                    out = model(mb)
+                with tracing.span("train.losses"):
+                    loss, logs = compute_losses(cfg, out, mb, progress)
+                with tracing.span("train.backward"):
+                    (loss / K).backward()
+            with torch.no_grad(), tracing.span("train.confusion"):
+                comp_k, conf_k = confusion_update(
+                    out["ssc_logit"].argmax(dim=-1), mb["target"],
+                    cfg.n_classes)
+                completion = (comp_k if completion is None
+                              else completion + comp_k)
+                conf = conf_k if conf is None else conf + conf_k
+                for k, v in logs.items():
+                    v = v.detach()
+                    logs_sum[k] = v if k not in logs_sum else logs_sum[k] + v
+        with tracing.span("train.update"):
+            apply_update(cfg, optimizer, lr)
+        return {k: v / K for k, v in logs_sum.items()}, completion, conf
 
 
 def apply_update(cfg: OccDepthConfig, optimizer: torch.optim.Optimizer,
@@ -181,10 +194,13 @@ def eval_step(
     batch = dict(batch)
     sample_valid: Optional[torch.Tensor] = batch.pop("sample_valid", None)
     model.eval()
-    with torch.inference_mode():
-        out = model(batch)
-        _, logs = compute_losses(cfg, out, batch, 0.0, is_test=True)
-        completion, conf = confusion_update(
-            out["ssc_logit"].argmax(dim=-1), batch["target"], cfg.n_classes,
-            sample_valid)
+    with torch.inference_mode(), tracing.span("eval.step"):
+        with tracing.span("eval.forward"):
+            out = model(batch)
+        with tracing.span("eval.losses"):
+            _, logs = compute_losses(cfg, out, batch, 0.0, is_test=True)
+        with tracing.span("eval.confusion"):
+            completion, conf = confusion_update(
+                out["ssc_logit"].argmax(dim=-1), batch["target"],
+                cfg.n_classes, sample_valid)
     return logs, completion, conf

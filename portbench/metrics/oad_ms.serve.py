@@ -1,0 +1,12 @@
+"""Device ms per frame from the entry to the exit event of the program's
+`model.oad` spans (the OAD depth branch and its gate on the lifted
+features), over the profiled stretch: the stage's work and any device
+idle inside it."""
+
+from portbench.core import spans
+
+
+def read(ctx):
+    if ctx.kind != "serve":
+        return None
+    return spans.device_ms_per_unit(ctx.stretch, "model.oad")

@@ -36,6 +36,7 @@ from occdepth_tpu.scripts import infer as jax_infer
 from occdepth_tpu.scripts import valid_kitti_submission as jax_valid
 from occdepth_tpu.scripts.visualization import voxel_vis as jax_voxel_vis
 from occdepth_tpu.training.convert_torch import convert_state_dict
+from occdepth_tpu_torch import tracing
 from occdepth_tpu_torch.config import load_config, parse_overrides
 from occdepth_tpu_torch.data.batch import make_synthetic_batch
 from occdepth_tpu_torch.data.kitti_io import TEST_SEQUENCES, get_inv_map
@@ -371,13 +372,19 @@ def test_exported_program_matches_eager_and_jax(tmp_path, dataset):
     """Export, save, load: the graph calls the registered kernels by name
     (the lift and K2 at two lift views, K3 under KITTI's `pallas`), and
     the loaded program's logits equal the eager model's within 1e-6 and
-    JAX's exported forward's within 3e-3."""
+    JAX's exported forward's within 3e-3.  The export runs with the
+    port's span recording on: the spans stay out of the graph and record
+    nothing while torch.export traces."""
     cfg, _, model, variables, batch, eager = _dataset_setup(dataset)
     inputs = _tensors(batch)
-    ref, exported = _beside(
-        lambda: _jax_exported_logits(dataset, variables, batch),
-        lambda: export_model.export_forward(cfg, model, inputs))
+    tracing.clear()
+    with tracing.recording():
+        ref, exported = _beside(
+            lambda: _jax_exported_logits(dataset, variables, batch),
+            lambda: export_model.export_forward(cfg, model, inputs))
+    assert tracing.records() == []
     targets = {str(n.target) for n in exported.graph.nodes}
+    assert not [t for t in targets if "profiler" in t], sorted(targets)
     want = {"occdepth.flosp_stereo_lift.default",
             "occdepth.crp_relation_matmul.default"}
     pallas = cfg.decoder_conv_impl == "pallas"
