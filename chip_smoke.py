@@ -48,11 +48,19 @@ Phases, one line each:
      standalone K1 never;
   6. the serving path: ServingPipeline at the flagship KITTI stereo config
      (b3, feature 32, 370x1220 stereo, 256x256x32 grid, 20 classes, bf16,
-     seeded random weights) serves 5 frames at batch size 2; the kernels'
-     launch counters, set to 0 just before, must grow over that run (the
-     fused lift and K2 once per dispatch); the device time of each of the
-     program's spans per dispatch (the serving and model-stage spans of
+     seeded random weights) serves 5 frames at batch size 2 after its
+     warm-up dispatch has captured the stage graphs; the kernels' launch
+     counters, set to 0 just before, must grow over that run (the fused
+     lift and K2 once per dispatch: a graph's replay counts the launches
+     its capture recorded); the device time of each of the program's
+     spans per dispatch (the serving and model-stage spans of
      tracing.py, each with its device time once per dispatch);
+ 6b. the flagship served at batch 1 and 8 eagerly (the pipeline's forward
+     with each stage run in place) and through the stage graphs, on 12
+     seeded frames: the grids bitwise equal, the same kernel launches
+     counted on both paths, every graph-path dispatch served by replays
+     (tracing.counts: replays per dispatch, no eager dispatch), the
+     capture dispatch's seconds, max_memory_reserved of each path;
   7. K4 dw_filter_grad (one launch per conv: clusters of blocks per
      channel, bands staged by bulk copies) vs its plain version at every
      stride-1 depthwise shape of the flagship encoder (batch 1, the 22
@@ -294,6 +302,8 @@ K2_RTOL = 2e-5  # fp32 sums of 512 terms in another order, x max|ref|
 K2_RELATIONS = 4
 TINY_ATOL = 1e-3  # fp32 CUDA (cuDNN, TF32 off) vs CPU sums over a whole net
 N_FRAMES, BATCH = 5, 2
+# phase 6b: seeded frames served eagerly and through the stage graphs
+SERVE_CHECK_FRAMES, SERVE_CHECK_SEED, SERVE_PATH_BATCHES = 12, 6, (1, 8)
 # the spans a serving dispatch opens (occdepth_tpu_torch/tracing.py)
 SERVE_SPANS = ("serve.dispatch", "serve.upload", "serve.forward",
                "serve.drain", "model.backbone_2d", "model.lift", "model.oad",
@@ -353,6 +363,169 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke: {what}")
+
+
+def eager_serve(pipe, frames) -> list:
+    """The grids of `frames` through the pipeline's forward with each stage
+    run in place (its eager path), batch by batch, padded as `run` pads."""
+    import torch
+
+    from occdepth_tpu_torch import tracing
+
+    B, grids = pipe.batch_size, []
+    with torch.inference_mode():
+        for i in range(0, len(frames), B):
+            buf = frames[i:i + B]
+            n = len(buf)
+            x = torch.from_numpy(np.stack(buf + [buf[0]] * (B - n))).to(
+                pipe.device)
+            grids += list(pipe._forward(x, tracing.call).cpu().numpy()[:n])
+    return grids
+
+
+def phase_serve(cfg, pipe, smi) -> dict:
+    """6. The flagship pipeline at batch BATCH serves N_FRAMES frames after
+    its warm-up: the stage spans once a dispatch with device times, the
+    grids' shape, classes and distinctness, and each kernel's launches
+    over the run (returned)."""
+    import torch
+
+    from occdepth_tpu_torch import tracing
+    from occdepth_tpu_torch.scripts.profile_serve_stages import stage_ms
+
+    t0 = time.perf_counter()
+    pipe.warmup()
+    warm_s = time.perf_counter() - t0
+    rs = np.random.RandomState(0)
+    H, W = cfg.img_shape
+    frames = [rs.randint(0, 256, size=(cfg.n_views, H, W, 3)).astype(np.uint8)
+              for _ in range(N_FRAMES)]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    tracing.clear()
+    t0 = time.perf_counter()
+    with tracing.recording():
+        start.record()
+        preds = list(pipe.run(frames))
+        end.record()
+    end.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_counts()
+    dispatches = -(-N_FRAMES // BATCH)
+    log("serve_stages", gpu=repr(smi), dispatches=dispatches,
+        **{f"{k}_ms_per_dispatch": f"{v:.4f}"
+           for k, v in stage_ms().items()},
+        timed="median over the dispatches, the program's spans")
+    spans = tracing.device_ms()
+    for name in SERVE_SPANS:
+        n = len(spans.get(name, ()))
+        check(n == dispatches, f"{name}: device times of {n} spans")
+    ms_frame = start.elapsed_time(end) / N_FRAMES
+    peak = torch.cuda.max_memory_allocated()
+    log("serve", frames=len(preds), dispatches=dispatches,
+        shape=tuple(preds[0].shape) if preds else None,
+        warmup_s=f"{warm_s:.2f}", ms_per_frame=f"{ms_frame:.2f}",
+        fps=f"{N_FRAMES / wall_s:.3f}",
+        peak_mem_gib=f"{peak / 2**30:.3f}",
+        lift_launches=launches["flosp_stereo_lift"],
+        packs=launches["pack_nhwc"],
+        k2_launches=launches["crp_relation_matmul"],
+        k1_launches=launches["stereo_cosine_fuse"])
+    check(len(preds) == N_FRAMES, f"{len(preds)} outputs for {N_FRAMES}")
+    for p in preds:
+        check(p.shape == tuple(cfg.full_scene_size) and p.dtype == np.uint8,
+              f"output {p.shape} {p.dtype}")
+        check(int(p.max()) < cfg.n_classes, f"class {int(p.max())}")
+        check(np.unique(p).size > 1, "a served grid is constant")
+    check(len({p.tobytes() for p in preds}) == N_FRAMES,
+          "distinct frames gave identical grids")
+    check(launches["flosp_stereo_lift"] == dispatches,
+          f"fused lift launches {launches['flosp_stereo_lift']}")
+    check(launches["stereo_cosine_fuse"] == 0,
+          f"K1 launches {launches['stereo_cosine_fuse']}")
+    check(launches["crp_relation_matmul"] == dispatches,
+          f"K2 launches {launches['crp_relation_matmul']}")
+    check(launches["dw_filter_grad"] == 0, "serving ran a backward")
+    check(launches["conv3x3"] == 0, "serving at decoder_conv_impl=auto ran K3")
+    return launches
+
+
+def phase_serve_paths() -> dict:
+    """6b. The flagship at batch 1 and 8: eager grids vs stage-graph grids
+    on SERVE_CHECK_FRAMES seeded frames, bitwise; replays per dispatch,
+    the capture dispatch's seconds, each path's max_memory_reserved (the
+    eager path measured first, before any graph holds its pool)."""
+    import gc
+
+    import torch
+
+    from occdepth_tpu_torch import tracing
+    from occdepth_tpu_torch.scripts.profile_serve_stages import serving_setup
+
+    res = {}
+    for B in SERVE_PATH_BATCHES:
+        cfg, pipe, _ = serving_setup(B)
+        H, W = cfg.img_shape
+        rs = np.random.RandomState(SERVE_CHECK_SEED)
+        frames = [rs.randint(0, 256, (cfg.n_views, H, W, 3)).astype(np.uint8)
+                  for _ in range(SERVE_CHECK_FRAMES)]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        at = read_counts()
+        eager = eager_serve(pipe, frames)
+        torch.cuda.synchronize()
+        eager_launches = {k: n - at[k] for k, n in read_counts().items()}
+        eager_reserved = torch.cuda.max_memory_reserved()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = dict(tracing.counts)
+        t0 = time.perf_counter()
+        pipe.warmup()  # the first dispatch captures the stage graphs
+        capture_s = time.perf_counter() - t0
+        at = read_counts()
+        graphed = list(pipe.run(frames))
+        torch.cuda.synchronize()
+        graph_launches = {k: n - at[k] for k, n in read_counts().items()}
+        graph_reserved = torch.cuda.max_memory_reserved()
+        counts = {k: tracing.counts[k] - before.get(k, 0)
+                  for k in tracing.counts}
+        dispatches = 1 + -(-len(frames) // B)  # the warm-up's included
+        check(counts.get("serve.eager_dispatches", 0) == 0,
+              f"b{B}: eager dispatches {counts}")
+        check(counts.get("serve.graph_dispatches") == dispatches,
+              f"b{B}: graph dispatches {counts}")
+        n_graphs = counts.get("serve.graph_captures", 0)
+        check(n_graphs > 0 and counts.get("serve.graph_replays")
+              == n_graphs * dispatches, f"b{B}: replays {counts}")
+        check(len(graphed) == len(eager) == len(frames),
+              f"b{B}: {len(graphed)} graph-served, {len(eager)} eager grids")
+        check(graph_launches == eager_launches
+              and eager_launches["crp_relation_matmul"] == dispatches - 1,
+              f"b{B}: kernel launches through the graphs {graph_launches}, "
+              f"eagerly {eager_launches}")
+        same = sum(np.array_equal(g, e) for g, e in zip(graphed, eager))
+        check(same == len(frames),
+              f"b{B}: {len(frames) - same} grids differ from eager")
+        res[f"b{B}"] = dict(
+            graphs=n_graphs,
+            replays_per_dispatch=counts["serve.graph_replays"] / dispatches,
+            capture_s=capture_s, eager_reserved_gib=eager_reserved / 2**30,
+            graph_reserved_gib=graph_reserved / 2**30)
+        log("serve_paths", batch=B, frames=len(frames), bitwise_equal=same,
+            graphs=n_graphs, dispatches=dispatches,
+            replays_per_dispatch=f"{res[f'b{B}']['replays_per_dispatch']:.2f}",
+            capture_s=f"{capture_s:.3f}",
+            eager_max_reserved_gib=f"{eager_reserved / 2**30:.3f}",
+            graph_max_reserved_gib=f"{graph_reserved / 2**30:.3f}")
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
 
 
 def phase_selftest(dev) -> dict:
@@ -1211,39 +1384,11 @@ def phase_tiny_train(dev) -> dict:
     return {"loss_rel_err": loss_err}
 
 
-def kernel_counters() -> dict:
-    """name -> the wrapper whose `.launches` counts that kernel."""
-    from occdepth_tpu_torch.ops.conv2d_shift import (
-        conv3x3,
-        to_padded_channels_last,
-    )
-    from occdepth_tpu_torch.ops.crp_matmul import crp_relation_matmul
-    from occdepth_tpu_torch.ops.dw_conv import dw_filter_grad
-    from occdepth_tpu_torch.ops.flosp_gather import (
-        flosp_stereo_lift,
-        flosp_stereo_lift_backward,
-    )
-    from occdepth_tpu_torch.ops.matmul_probe import matmul_probe
-    from occdepth_tpu_torch.ops.row_gather import row_gather
-    from occdepth_tpu_torch.ops.stereo_fuse import (
-        stereo_cosine_fuse,
-        stereo_cosine_fuse_backward,
-    )
-
-    return {"stereo_cosine_fuse": stereo_cosine_fuse,
-            "stereo_cosine_fuse_backward": stereo_cosine_fuse_backward,
-            "flosp_stereo_lift": flosp_stereo_lift,
-            "flosp_stereo_lift_backward": flosp_stereo_lift_backward,
-            "pack_nhwc": to_padded_channels_last,
-            "crp_relation_matmul": crp_relation_matmul,
-            "conv3x3": conv3x3, "dw_filter_grad": dw_filter_grad,
-            "row_gather": row_gather, "matmul_probe": matmul_probe}
-
-
 def reset_counts() -> None:
+    from occdepth_tpu_torch.ops import launch_counters
     from occdepth_tpu_torch.ops.dw_conv import dw_filter_grad
 
-    for fn in kernel_counters().values():
+    for fn in launch_counters().values():
         fn.launches = 0
         for key in getattr(fn, "paths", {}):
             fn.paths[key] = 0
@@ -1251,7 +1396,9 @@ def reset_counts() -> None:
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in kernel_counters().items()}
+    from occdepth_tpu_torch.ops import launch_counters
+
+    return {name: fn.launches for name, fn in launch_counters().items()}
 
 
 def read_paths() -> dict:
@@ -3641,7 +3788,7 @@ def phase_raw_data(smi: str) -> dict:
           f"bench_loader cases {cases}")
     res["launches"] = {name: sum(res[k]["launches"][name]
                                  for k in ("kitti", "nyu", "tartanair"))
-                       for name in kernel_counters()}
+                       for name in read_counts()}
     res["seconds"] = time.perf_counter() - t_phase
     log("raw_phase", seconds=f"{res['seconds']:.1f}",
         **{f"{k}_launches": v for k, v in res["launches"].items()})
@@ -3658,11 +3805,7 @@ def main() -> None:
     from occdepth_tpu_torch.data.tartanair import TartanAirDataset
     from occdepth_tpu_torch import native_ext
     from occdepth_tpu_torch.ops import cuda_lib
-    from occdepth_tpu_torch import tracing
-    from occdepth_tpu_torch.scripts.profile_serve_stages import (
-        serving_setup,
-        stage_ms,
-    )
+    from occdepth_tpu_torch.scripts.profile_serve_stages import serving_setup
     from occdepth_tpu_torch.testing import (
         make_nyu_tree,
         make_tartanair_tree,
@@ -3698,65 +3841,10 @@ def main() -> None:
     # ---- 5. tiny configs: CUDA (kernels) vs CPU (plain versions) ----
     phase_tiny(dev)
 
-    # ---- 6. main path: flagship KITTI stereo serving ----
-    t0 = time.perf_counter()
-    pipe.warmup()
-    warm_s = time.perf_counter() - t0
-    rs = np.random.RandomState(0)
-    H, W = cfg.img_shape
-    frames = [rs.randint(0, 256, size=(cfg.n_views, H, W, 3)).astype(np.uint8)
-              for _ in range(N_FRAMES)]
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    tracing.clear()
-    t0 = time.perf_counter()
-    with tracing.recording():
-        start.record()
-        preds = list(pipe.run(frames))
-        end.record()
-    end.synchronize()
-    wall_s = time.perf_counter() - t0
-    launches = read_counts()
-    dispatches = -(-N_FRAMES // BATCH)
-    log("serve_stages", gpu=repr(smi), dispatches=dispatches,
-        **{f"{k}_ms_per_dispatch": f"{v:.4f}"
-           for k, v in stage_ms().items()},
-        timed="median over the dispatches, the program's spans")
-    spans = tracing.device_ms()
-    for name in SERVE_SPANS:
-        n = len(spans.get(name, ()))
-        check(n == dispatches, f"{name}: device times of {n} spans")
-    ms_frame = start.elapsed_time(end) / N_FRAMES
-    peak = torch.cuda.max_memory_allocated()
-    log("serve", frames=len(preds), dispatches=dispatches,
-        shape=tuple(preds[0].shape) if preds else None,
-        warmup_s=f"{warm_s:.2f}", ms_per_frame=f"{ms_frame:.2f}",
-        fps=f"{N_FRAMES / wall_s:.3f}",
-        peak_mem_gib=f"{peak / 2**30:.3f}",
-        lift_launches=launches["flosp_stereo_lift"],
-        packs=launches["pack_nhwc"],
-        k2_launches=launches["crp_relation_matmul"],
-        k1_launches=launches["stereo_cosine_fuse"])
-    check(len(preds) == N_FRAMES, f"{len(preds)} outputs for {N_FRAMES}")
-    for p in preds:
-        check(p.shape == tuple(cfg.full_scene_size) and p.dtype == np.uint8,
-              f"output {p.shape} {p.dtype}")
-        check(int(p.max()) < cfg.n_classes, f"class {int(p.max())}")
-        check(np.unique(p).size > 1, "a served grid is constant")
-    check(len({p.tobytes() for p in preds}) == N_FRAMES,
-          "distinct frames gave identical grids")
-    check(launches["flosp_stereo_lift"] == dispatches,
-          f"fused lift launches {launches['flosp_stereo_lift']}")
-    check(launches["stereo_cosine_fuse"] == 0,
-          f"K1 launches {launches['stereo_cosine_fuse']}")
-    check(launches["crp_relation_matmul"] == dispatches,
-          f"K2 launches {launches['crp_relation_matmul']}")
-    check(launches["dw_filter_grad"] == 0, "serving ran a backward")
-    check(launches["conv3x3"] == 0, "serving at decoder_conv_impl=auto ran K3")
+    # ---- 6, 6b. main path: flagship KITTI stereo serving ----
+    launches = phase_serve(cfg, pipe, smi)
+    del pipe
+    phase_serve_paths()
 
     # ---- 7-10. K4, autograd through K1/K2, tiny and flagship training ----
     k4 = phase_k4(dev)

@@ -40,7 +40,13 @@ package's `stop_gradient`, without building their backward graph.
 Each stage runs under a span (`tracing.py`): `model.backbone_2d` (each
 2D UNet call), `model.virtual_view`, `model.lift`, `model.oad` and
 `model.decoder_3d`, inside which the decoders open `model.crp` and
-`model.heads`.
+`model.heads`.  Every stage but the lift, and the glue between them
+(the decoders' parts around `model.crp`, the first with the decoder's
+input cast, the outputs' casts), is a function of tensors run through
+the forward's `stage` runner: by default `tracing.call`, the function
+inside its span; the serving pipeline passes a runner that replays each
+as a CUDA graph.  The lift stays an eager call: its operators' host
+events are what the profiler attributes its kernels to.
 
 Numerics follow `compute_dtype` (see models/layers.py): the image is cast
 once, convolutions run in that dtype, while BatchNorm, the softmaxes, the
@@ -134,15 +140,18 @@ class OccDepthModel(nn.Module):
                 for s in self.net_rgb.decoder.scales if s not in read
                 for p in ("weight", "bias")]
 
-    def backbone_features(self, img: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def _backbone(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """(B', H, W, 3) images -> the 2D UNet's {'1_s': (B', C, h, w)}."""
+        return self.net_rgb(x.permute(0, 3, 1, 2).to(
+            dtype=self.compute_dtype, memory_format=torch.contiguous_format))
+
+    def backbone_features(self, img: torch.Tensor,
+                          stage=tracing.call) -> Dict[str, torch.Tensor]:
         """(B, V, H, W, 3) views -> {'1_s': (B, V, C, h, w)}."""
         B, V, H, W, _ = img.shape
 
         def net_rgb(x):
-            with tracing.span("model.backbone_2d"):
-                return self.net_rgb(x.permute(0, 3, 1, 2).to(
-                    dtype=self.compute_dtype,
-                    memory_format=torch.contiguous_format))
+            return stage("model.backbone_2d", self._backbone, x)
 
         if not (self.training and V > 1):
             # all views in one call (frozen BN at eval)
@@ -158,22 +167,50 @@ class OccDepthModel(nn.Module):
         return {k: torch.stack([f[k] for f in per_view], dim=1)
                 for k in per_view[0]}
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def _virtual_views(self, gt_depth, virtual_bf, *maps):
+        """The maps of `project_res`, each (B, V, C, h, w), with the
+        virtual right view of view 0 appended, warped in float32."""
+        bf = virtual_bf.reshape(-1)[0].float()
+        gt_depth = gt_depth.float()
+        return tuple(
+            torch.cat([m, _virtual_view(m[:, 0].float(), gt_depth, scale,
+                                        bf).to(self.compute_dtype)[:, None]],
+                      dim=1)
+            for m, scale in zip(maps, self.cfg.project_res))
+
+    def _oad(self, x3d, feat, cam_k, T_velo_2_cam, ida_mats, vox_origin):
+        """The OAD depth branch's weight volume applied to the lifted
+        (B, C, X, Y, Z) grid -> (the gated grid, depth or None)."""
+        result = self.flosp_depth(feat, cam_k, T_velo_2_cam, ida_mats,
+                                  vox_origin)
+        weight, depth = result if self.cfg.with_depth_gt else (result, None)
+        return x3d * weight[:, None] * 100.0, depth
+
+    @staticmethod
+    def _outputs(net_out):
+        """The decoder's NCDHW outputs -> the model's float32 outputs."""
+        out = {"ssc_logit": net_out["ssc_logit"].float().permute(
+            0, 2, 3, 4, 1)}
+        for key in ("occ_logit", "occluded_logit"):
+            if key in net_out:
+                out[key] = net_out[key].float().permute(0, 2, 3, 4, 1)
+        if "P_logits" in net_out:
+            out["P_logits"] = net_out["P_logits"].float()
+        return out
+
+    def forward(self, batch: Dict[str, torch.Tensor],
+                stage=tracing.call) -> Dict[str, torch.Tensor]:
+        """`stage(name, fn, *args)` runs each stage (`tracing.call`: fn
+        inside the span `name`)."""
         cfg = self.cfg
-        dtype = self.compute_dtype
-        feats = self.backbone_features(batch["img"])  # '1_s': (B, V, C, h, w)
+        feats = self.backbone_features(batch["img"], stage)
 
         # ---- NYU virtual right view from RGB-D, warped in float32 ----
         if cfg.dataset == "NYU" and cfg.use_depth_gt and "gt_depth" in batch:
-            with tracing.span("model.virtual_view"):
-                bf = batch["virtual_bf"].reshape(-1)[0].float()
-                gt_depth = batch["gt_depth"].float()
-                for scale in cfg.project_res:
-                    key = f"1_{scale}"
-                    virt = _virtual_view(feats[key][:, 0].float(), gt_depth,
-                                         scale, bf).to(dtype)
-                    feats[key] = torch.cat([feats[key], virt[:, None]],
-                                           dim=1)
+            keys = [f"1_{s}" for s in cfg.project_res]
+            feats.update(zip(keys, stage(
+                "model.virtual_view", self._virtual_views, batch["gt_depth"],
+                batch["virtual_bf"], *[feats[k] for k in keys])))
 
         # ---- FLoSP lift + Stereo-SFA fusion (float32) ----
         with tracing.span("model.lift"):
@@ -189,26 +226,15 @@ class OccDepthModel(nn.Module):
         if cfg.trans_2d_to_3d == "flosp_depth":
             key = f"1_{cfg.flosp_depth_conf.downsample_factor}"
             v = 1 if cfg.dataset == "NYU" else feats[key].shape[1]
-            with tracing.span("model.oad"):
-                result = self.flosp_depth(
-                    feats[key][:, :v], batch["cam_k"][:, :v],
-                    batch["T_velo_2_cam"][:, :v], batch["ida_mats"][:, :v],
-                    batch.get("vox_origin"))
-                if cfg.with_depth_gt:
-                    weight, depth = result
-                    out["depth_pred"] = depth.permute(0, 1, 3, 4, 2)
-                else:
-                    weight = result
-                x3d = x3d * weight[:, None] * 100.0
+            x3d, depth = stage(
+                "model.oad", self._oad, x3d, feats[key][:, :v],
+                batch["cam_k"][:, :v], batch["T_velo_2_cam"][:, :v],
+                batch["ida_mats"][:, :v], batch.get("vox_origin"))
+            if depth is not None:
+                out["depth_pred"] = depth.permute(0, 1, 3, 4, 2)
 
         # ---- 3D UNet + heads ----
         with tracing.span("model.decoder_3d"):
-            x3d = x3d.to(dtype=dtype, memory_format=torch.contiguous_format)
-            net_out = self.net_3d_decoder(x3d)
-        out["ssc_logit"] = net_out["ssc_logit"].float().permute(0, 2, 3, 4, 1)
-        for key in ("occ_logit", "occluded_logit"):
-            if key in net_out:
-                out[key] = net_out[key].float().permute(0, 2, 3, 4, 1)
-        if "P_logits" in net_out:
-            out["P_logits"] = net_out["P_logits"].float()
+            net_out = self.net_3d_decoder(x3d, stage, self.compute_dtype)
+        out.update(stage(None, self._outputs, net_out))
         return out

@@ -57,27 +57,41 @@ class UNet3DKitti(nn.Module):
                 bn_momentum=bn_momentum,
             )
 
-    def forward(self, x3d_l1) -> Dict[str, torch.Tensor]:
-        """x3d_l1 (B, f, X, Y, Z) -> NCDHW ssc_logit, occ_logit and
-        occluded_logit where enabled (+P_logits)."""
-        res: Dict[str, torch.Tensor] = {}
+    def _encode(self, x3d, dtype):
+        x3d_l1 = x3d.to(dtype=dtype, memory_format=torch.contiguous_format)
         x3d_l2 = self.process_l1(x3d_l1)
-        x3d_l3 = self.process_l2(x3d_l2)
-        if self.context_prior:
-            with tracing.span("model.crp"):
-                ret = self.CP_mega_voxels(x3d_l3)
-            x3d_l3 = ret["x"]
-            res["P_logits"] = ret["P_logits"]
+        return x3d_l1, x3d_l2, self.process_l2(x3d_l2)
+
+    def _decode(self, x3d_l3, x3d_l2, x3d_l1):
         x3d_up_l2 = self.up_13_l2(x3d_l3) + x3d_l2
         x3d_up_l1 = self.up_12_l1(x3d_up_l2) + x3d_l1
-        x3d_full = self.up_l1_lfull(x3d_up_l1)
-        with tracing.span("model.heads"):
-            ssc, occ = self.ssc_head(x3d_full)
-            if self.occluded_head is not None:
-                res["occluded_logit"] = self.occluded_head(x3d_full)
+        return self.up_l1_lfull(x3d_up_l1)
+
+    def _heads(self, x3d_full) -> Dict[str, torch.Tensor]:
+        ssc, occ = self.ssc_head(x3d_full)
+        res = {}
+        if self.occluded_head is not None:
+            res["occluded_logit"] = self.occluded_head(x3d_full)
         res["ssc_logit"] = ssc
         if occ is not None:
             res["occ_logit"] = occ
+        return res
+
+    def forward(self, x3d, stage=tracing.call,
+                dtype=None) -> Dict[str, torch.Tensor]:
+        """x3d (B, f, X, Y, Z), cast to `dtype` (default its own) and made
+        contiguous first -> NCDHW ssc_logit, occ_logit and occluded_logit
+        where enabled (+P_logits); `stage` runs the parts between the spans
+        and the spans' stages (`OccDepthModel.forward`)."""
+        res: Dict[str, torch.Tensor] = {}
+        x3d_l1, x3d_l2, x3d_l3 = stage(None, self._encode, x3d,
+                                       dtype or x3d.dtype)
+        if self.context_prior:
+            ret = stage("model.crp", self.CP_mega_voxels, x3d_l3)
+            x3d_l3 = ret["x"]
+            res["P_logits"] = ret["P_logits"]
+        x3d_full = stage(None, self._decode, x3d_l3, x3d_l2, x3d_l1)
+        res.update(stage("model.heads", self._heads, x3d_full))
         return res
 
 
@@ -107,22 +121,32 @@ class UNet3DNYU(nn.Module):
                 bn_momentum=bn_momentum,
             )
 
-    def forward(self, x3d_1_4) -> Dict[str, torch.Tensor]:
-        """x3d_1_4 (B, f, X, Z, Y) -> NCDHW ssc_logit and occ_logit where
-        enabled (+P_logits)."""
-        res: Dict[str, torch.Tensor] = {}
+    def _encode(self, x3d, dtype):
+        x3d_1_4 = x3d.to(dtype=dtype, memory_format=torch.contiguous_format)
         x3d_1_8 = self.process_1_4(x3d_1_4)
-        x3d_1_16 = self.process_1_8(x3d_1_8)
+        return x3d_1_4, x3d_1_8, self.process_1_8(x3d_1_8)
+
+    def _decode(self, x3d_1_16, x3d_1_8, x3d_1_4):
+        x3d_up_1_8 = self.up_1_16_1_8(x3d_1_16) + x3d_1_8
+        return self.up_1_8_1_4(x3d_up_1_8) + x3d_1_4
+
+    def _heads(self, x3d_up_1_4) -> Dict[str, torch.Tensor]:
+        ssc, occ = self.ssc_head_1_4(x3d_up_1_4)
+        return {"ssc_logit": ssc} if occ is None else {"ssc_logit": ssc,
+                                                      "occ_logit": occ}
+
+    def forward(self, x3d, stage=tracing.call,
+                dtype=None) -> Dict[str, torch.Tensor]:
+        """x3d (B, f, X, Z, Y) -> NCDHW ssc_logit and occ_logit where
+        enabled (+P_logits); `stage` and `dtype` as in
+        `UNet3DKitti.forward`."""
+        res: Dict[str, torch.Tensor] = {}
+        x3d_1_4, x3d_1_8, x3d_1_16 = stage(None, self._encode, x3d,
+                                           dtype or x3d.dtype)
         if self.context_prior:
-            with tracing.span("model.crp"):
-                ret = self.CP_mega_voxels(x3d_1_16)
+            ret = stage("model.crp", self.CP_mega_voxels, x3d_1_16)
             x3d_1_16 = ret["x"]
             res["P_logits"] = ret["P_logits"]
-        x3d_up_1_8 = self.up_1_16_1_8(x3d_1_16) + x3d_1_8
-        x3d_up_1_4 = self.up_1_8_1_4(x3d_up_1_8) + x3d_1_4
-        with tracing.span("model.heads"):
-            ssc, occ = self.ssc_head_1_4(x3d_up_1_4)
-        res["ssc_logit"] = ssc
-        if occ is not None:
-            res["occ_logit"] = occ
+        x3d_up_1_4 = stage(None, self._decode, x3d_1_16, x3d_1_8, x3d_1_4)
+        res.update(stage("model.heads", self._heads, x3d_up_1_4))
         return res

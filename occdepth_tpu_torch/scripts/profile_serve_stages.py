@@ -15,7 +15,8 @@ fusion, kernel K1+), `model.oad`, `model.decoder_3d` and inside it
 `model.crp` (the relation products, kernel K2) and `model.heads`, and the
 readout `serve.drain`.  Each span's device time runs from the CUDA event
 at its start to the one at its end, so it includes any wait for the
-host's launches inside it.  It prints the median over the timed
+host's launches inside it; on CUDA each model stage but the lift is a
+CUDA-graph replay inside its span (`serving/pipeline.py`).  It prints the median over the timed
 dispatches (after one warm-up dispatch) and ms/frame over the run;
 --json adds one JSON line.
 """

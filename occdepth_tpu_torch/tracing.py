@@ -20,6 +20,12 @@ program or a CUDA graph is being captured.  Inactive, it costs one flag
 check and one call into the profiler's C state, and returns one shared
 null context.
 
+The model runs each stage through `call(name, fn, *args)`, the stage in
+its span, unless its caller passes another runner of that signature: the
+serving pipeline's replays each stage as a CUDA graph
+(`serving/pipeline.py`).  `counts` says how often that path engages; it
+counts whether or not spans are active.
+
     with tracing.recording():
         ...                                 # run the program
     torch.cuda.synchronize()
@@ -46,6 +52,14 @@ _units = itertools.count()
 _local = threading.local()  # each thread's open spans
 _recording = 0
 _profiling = torch._C._autograd._profiler_enabled
+
+counts: collections.Counter = collections.Counter()
+"""Serving dispatches by path and stage graphs by event, since the process
+started (a reader takes differences, or clears it):
+`serve.graph_dispatches` and `serve.eager_dispatches` (dispatches served
+by stage-graph replays and eagerly), `serve.graph_captures` and
+`serve.graph_replays` (stage graphs captured and replayed, the replay
+right after each capture included)."""
 
 
 class Record:
@@ -134,6 +148,15 @@ def span(name: str, unit: Optional[int] = None):
     if torch.compiler.is_compiling() or _capturing():
         return _NULL
     return _Span(name, unit)
+
+
+def call(name: Optional[str], fn, *args):
+    """`fn(*args)` inside the span `name` (outside any for None): a stage
+    of the model run eagerly."""
+    if name is None:
+        return fn(*args)
+    with span(name):
+        return fn(*args)
 
 
 @contextlib.contextmanager
